@@ -1,0 +1,73 @@
+"""Binding of the hand-written CUDA paged-attention decode kernel.
+
+The kernel is `csrc/paged_attention.cu` (it replaces the Pallas
+`repro.kernels.paged_attention.kernel.paged_attention_kernel`). This
+wrapper checks its inputs, allocates the output, launches on PyTorch's
+current stream and counts its launches in `paged_attention_kernel.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+# compiled for llama31-8b's head_dim and query heads per KV head
+HEAD_DIMS = (128,)
+GROUPS = (4,)
+
+
+def _lib():
+    lib = build.load("paged_attention")
+    fn = lib.paged_attention_bf16
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+    return lib
+
+
+def paged_attention_kernel(q, k_pool, v_pool, block_tables, seq_lens
+                           ) -> torch.Tensor:
+    """q: (B, Hq, D) bf16; pools: (P, page, Hkv, D) bf16; block_tables:
+    (B, max_pages) int32; seq_lens: (B,) int32. All contiguous on one card.
+    Returns (B, Hq, D) bf16."""
+    B, Hq, D = q.shape
+    P, page, Hkv, Dk = k_pool.shape
+    max_pages = block_tables.shape[1]
+    tensors = (q, k_pool, v_pool, block_tables, seq_lens)
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("paged_attention_kernel: all inputs must be on one "
+                         "CUDA device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention_kernel: inputs must be contiguous")
+    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16 or \
+            v_pool.dtype != torch.bfloat16:
+        raise TypeError("paged_attention_kernel: q and pools must be bf16")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_attention_kernel: block_tables and seq_lens "
+                        "must be int32")
+    if v_pool.shape != k_pool.shape or Dk != D or Hq % Hkv or \
+            block_tables.shape[0] != B or seq_lens.shape != (B,):
+        raise ValueError("paged_attention_kernel: inconsistent shapes")
+    if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
+        raise ValueError(f"paged_attention_kernel: head_dim {D} / group "
+                         f"{Hq // Hkv} not compiled (have {HEAD_DIMS} / "
+                         f"{GROUPS})")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.paged_attention_bf16(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, D, page, max_pages, stream)
+    build.check(lib, err, "paged_attention_kernel")
+    paged_attention_kernel.launches += 1
+    return out
+
+
+paged_attention_kernel.launches = 0

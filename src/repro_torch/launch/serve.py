@@ -1,0 +1,111 @@
+"""Serving entry point: engine + live cost meter under an offered-load schedule.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \
+        --lam 2 --requests 8
+
+Real tier only: the full configuration on the card, wall-clock PyTorch
+execution through the hand-written attention kernels. `--device cpu`
+runs `reduced(arch, vocab=1024)` with the kernels' plain versions instead. The meter
+scrapes the engine's Prometheus text every 10 s of engine time and prints
+the live $/M-tok at $1/hr. The sim tier waits for an H100
+step-time model.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import CostMeter
+from repro_torch.models import init_params
+from repro_torch.serving import (ArrivalSpec, Engine, EngineConfig,
+                                 RealExecutor, synth_requests)
+from repro_torch.serving.executors import resolve_device
+
+# On the card: room for 8 chat requests of 512 + 256 tokens at page 16
+# (48 pages each), plus the trash page.
+CARD_ENGINE = dict(max_batch=8, page_size=16, num_pages=8 * 48 + 1,
+                   max_pages_per_seq=48)
+CPU_ENGINE = dict(max_batch=8, page_size=16, num_pages=512,
+                  max_pages_per_seq=32)
+
+
+def build_engine(arch: str, *, device="cuda", seed: int = 0) -> Engine:
+    """The real-tier engine: the full `arch` on the card, or a reduced one
+    with `device="cpu"`. Weights are random, drawn from `seed`."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        # vocab 1024: the engine draws synthetic prompt ids from [0, 1000)
+        cfg, ecfg = reduced(arch, vocab=1024), CPU_ENGINE
+    else:
+        cfg, ecfg = get_config(arch), CARD_ENGINE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, device=device, generator=gen)
+    ex = RealExecutor(cfg, params, num_pages=ecfg["num_pages"],
+                      page_size=ecfg["page_size"],
+                      max_batch=ecfg["max_batch"], device=device)
+    return Engine(EngineConfig(**ecfg), ex)
+
+
+def serve(eng: Engine, spec: ArrivalSpec, price_per_hr: float,
+          tick_s: float = 10.0, log=print):
+    """Drive `eng` over `spec`'s requests in `tick_s` slices of engine time,
+    ticking the meter after each; returns (requests, meter)."""
+    meter = CostMeter(price_per_hr, scrape=lambda: eng.metrics.render())
+    reqs = synth_requests(spec)
+    horizon = 0.0
+    meter.tick()
+    while any(r.finish_time is None and r.retries <= 2 for r in reqs):
+        horizon += tick_s
+        eng.run(reqs, horizon=horizon)
+        s = meter.tick()
+        if s:
+            log(f"[meter t={s.t:8.1f}s] tps={s.tps:9.1f} "
+                f"inflight={s.inflight:5.0f} $/MTok={s.c_eff:10.4f}")
+        if horizon > 24 * 3600:
+            break
+    summ = meter.summary()
+    log(f"\nmeter summary: best-minute=${summ['best_minute']:.4f} "
+        f"worst-minute=${summ['worst_minute']:.4f} "
+        f"avg=${summ['time_weighted_avg']:.4f}")
+    done = [r for r in reqs if r.finish_time is not None]
+    if done:
+        log(f"completed {len(done)}/{len(reqs)}  "
+            f"TTFT p50={1e3*float(np.median([r.ttft for r in done])):.1f}ms")
+    return reqs, meter
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama31-8b")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--lam", type=float, default=2.0)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--io-shape", default="chat")
+    ap.add_argument("--scale", type=float, default=None,
+                    help="token-length scale (default 1.0 on the card, "
+                         "0.05 on the CPU)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare-tier", default=None)
+    ap.add_argument("--accept-slo-mismatch", action="store_true")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    scale = args.scale if args.scale is not None else (
+        0.05 if device.type == "cpu" else 1.0)
+    eng = build_engine(args.arch, device=device, seed=args.seed)
+    spec = ArrivalSpec(lam=args.lam, n_requests=args.requests,
+                       io_shape=args.io_shape, scale=scale, seed=args.seed)
+    # the real tier prices at $1/hr, as the reference's does, until an
+    # H100 price entry exists
+    _, meter = serve(eng, spec, price_per_hr=1.0)
+    if args.compare_tier:
+        print(meter.compare_api(
+            args.compare_tier,
+            accept_slo_mismatch=args.accept_slo_mismatch))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,17 @@
 """Where the time of the PyTorch port's served steps goes, on one card.
 
-    python3 scripts/torch_serve_profile.py [--steps 20] [--seed 0]
+    python3 scripts/torch_serve_profile.py [--arch llama31-8b]
+        [--quant bf16] [--steps 20] [--seed 0]
 
-Builds the full-width llama31-8b real-tier engine (random weights from
-`--seed`), fills all 8 slots with 512-token prompts in two prefill calls
-of 4, as the engine's 2048-token prefill budget admits them, and then:
+Builds the full-width real-tier engine of `--arch` in `--quant` (random
+weights from `--seed`), fills all 8 slots with 512-token prompts in two
+prefill calls of 4, as the engine's 2048-token prefill budget admits
+them, and then:
   * times prefill calls and decode steps with tracing off (host clock
     around work that ends in `torch.cuda.synchronize()`);
   * traces one prefill call and `--steps` decode steps with
     `torch.profiler`, and sums device time by kernel and by group
-    (matmul, the two attention kernels, everything else).
+    (matmul, the three kernels of the port, everything else).
 The device's busy share is the summed kernel time over the traced wall
 time. Prints one JSON object, with every number, as its last line.
 """
@@ -35,6 +37,8 @@ def group_of(name: str) -> str:
         return "paged_attention"
     if "flash_attention" in n:
         return "flash_attention"
+    if "int8_matmul" in n:
+        return "int8_matmul"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                             "splitk")):
         return "matmul"
@@ -69,6 +73,8 @@ def kernel_table(prof, wall_s: float, n_calls: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama31-8b")
+    ap.add_argument("--quant", default="bf16")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -77,7 +83,8 @@ def main(argv=None):
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.launch.serve import build_engine
 
-    eng = build_engine("llama31-8b", device="cuda", seed=args.seed)
+    eng = build_engine(args.arch, device="cuda", seed=args.seed,
+                       quant=args.quant)
     ex, pm = eng.ex, eng.pm
     Bmax = eng.cfg.max_batch
     rng = np.random.default_rng(args.seed)
@@ -131,7 +138,8 @@ def main(argv=None):
                          text=True, timeout=60).stdout.strip()
     out = {
         "device": smi,
-        "config": "llama31-8b, 32 layers, bf16, 8 slots, page 16",
+        "config": f"{args.arch}, {eng.ex.cfg.num_layers} layers, "
+                  f"{args.quant}, 8 slots, page 16",
         "untraced": {
             "prefill_4x512_ms": [x * 1e3 for x in prefill_wall],
             "decode_step_b8_ms_median": statistics.median(decode_wall) * 1e3,

@@ -1,8 +1,9 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
-Counterpart of `repro.configs`. This slice holds the paper's dense
-reference model, llama31-8b; the other configurations arrive with the
-slices that serve them.
+Counterpart of `repro.configs`. The port holds the configurations it
+serves: the paper's dense reference model, llama31-8b, and its
+ultra-sparse MoE, qwen3-30b-a3b; the others arrive with the slices that
+serve them.
 
 `reduced(name)` returns a tiny same-family config for CPU tests.
 """
@@ -24,9 +25,9 @@ from repro_torch.configs.base import (  # noqa: F401
     SSMConfig,
     XLSTMConfig,
 )
-from repro_torch.configs import llama31_8b  # noqa: E402
+from repro_torch.configs import llama31_8b, qwen3_30b_a3b  # noqa: E402
 
-_MODULES = (llama31_8b,)
+_MODULES = (llama31_8b, qwen3_30b_a3b)
 
 _REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

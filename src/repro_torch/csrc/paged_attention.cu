@@ -10,8 +10,8 @@
 // What bounds it on this card: device-memory bytes. Every valid position's
 // K and V row (2 * D * 2 bytes per KV head) is read once and used for G
 // dot products and G multiply-adds per element, 4 * G * D FLOPs on
-// 4 * D bytes: G (= 4 for llama31-8b) FLOPs per byte, far under the ~295
-// FLOP/byte where the tensor cores would bound.
+// 4 * D bytes: G (= 4 for llama31-8b, 8 for qwen3-30b-a3b) FLOPs per
+// byte, far under the ~295 FLOP/byte where the tensor cores would bound.
 //
 // What the design does about it: one block per (sequence, KV head) packs
 // the G query heads that share that KV head, so each K/V row is read from
@@ -137,27 +137,42 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int D, int G>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const void* block_tables, const void* seq_lens, void* out,
+                   int B, int Hkv, int page, int max_pages,
+                   cudaStream_t stream) {
+  paged_attention_kernel<D, G><<<dim3(B, Hkv), NW * 32, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool),
+      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
+      static_cast<__nv_bfloat16*>(out), Hkv, page, max_pages,
+      1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Instantiated for what the registered configs use: llama31-8b's head_dim
-// 128 with 4 query heads per KV head. A config that needs another (D, G)
-// adds its instantiation here and in the wrapper's list.
+// Instantiated for what the registered configs use: head_dim 128 with 4
+// query heads per KV head (llama31-8b) or 8 (qwen3-30b-a3b). A config that
+// needs another (D, G) adds its instantiation here and in the wrapper's
+// list.
 extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
                                     const void* v_pool,
                                     const void* block_tables,
                                     const void* seq_lens, void* out, int B,
                                     int Hq, int Hkv, int D, int page,
                                     int max_pages, void* stream) {
-  if (Hkv <= 0 || Hq != 4 * Hkv || D != 128) return cudaErrorInvalidValue;
-  paged_attention_kernel<128, 4>
-      <<<dim3(B, Hkv), NW * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k_pool),
-          static_cast<const __nv_bfloat16*>(v_pool),
-          static_cast<const int*>(block_tables),
-          static_cast<const int*>(seq_lens), static_cast<__nv_bfloat16*>(out),
-          Hkv, page, max_pages, 1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+  if (Hkv <= 0 || D != 128) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Hq == 4 * Hkv)
+    return launch<128, 4>(q, k_pool, v_pool, block_tables, seq_lens, out, B,
+                          Hkv, page, max_pages, s);
+  if (Hq == 8 * Hkv)
+    return launch<128, 8>(q, k_pool, v_pool, block_tables, seq_lens, out, B,
+                          Hkv, page, max_pages, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -2,6 +2,7 @@
 
   paged_attention/  decode over the paged KV pool  (csrc/paged_attention.cu)
   flash_attention/  causal prefill attention       (csrc/flash_attention.cu)
+  int8_matmul/      int8 GEMM, fused dequantization (csrc/int8_matmul.cu)
 
 Each subpackage has `ref.py` (plain version), `kernel.py` (ctypes binding
 with a launch count) and `ops.py` (dispatch: kernel for CUDA tensors,

@@ -13,9 +13,10 @@ import torch
 
 from repro_torch.kernels import build
 
-# compiled for llama31-8b's head_dim and query heads per KV head
+# compiled for the served head_dim and query heads per KV head:
+# llama31-8b (G 4) and qwen3-30b-a3b (G 8)
 HEAD_DIMS = (128,)
-GROUPS = (4,)
+GROUPS = (4, 8)
 
 
 def _lib():

@@ -1,11 +1,15 @@
 """Serving entry point: engine + live cost meter under an offered-load schedule.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \
-        --lam 2 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \
+        --quant int8 --lam 2 --requests 8
 
 Real tier only: the full configuration on the card, wall-clock PyTorch
-execution through the hand-written attention kernels. `--device cpu`
-runs `reduced(arch, vocab=1024)` with the kernels' plain versions instead. The meter
+execution through the hand-written kernels (attention; every `linear`
+under `--quant int8`). `--quant` is one of `quant.BY_NAME`: bf16, int8,
+fp8 (e4m3 weights dequantized to bf16, as the reference emulates it) or
+fp8_native (the same arithmetic: the reference has no native fp8 GEMM).
+`--device cpu` runs `reduced(arch, vocab=1024)` with the kernels' plain
+versions instead. The meter
 scrapes the engine's Prometheus text every 10 s of engine time and prints
 the live $/M-tok at $1/hr. The sim tier waits for an H100
 step-time model.
@@ -20,6 +24,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import CostMeter
 from repro_torch.models import init_params
+from repro_torch.quant import BY_NAME
 from repro_torch.serving import (ArrivalSpec, Engine, EngineConfig,
                                  RealExecutor, synth_requests)
 from repro_torch.serving.executors import resolve_device
@@ -32,9 +37,13 @@ CPU_ENGINE = dict(max_batch=8, page_size=16, num_pages=512,
                   max_pages_per_seq=32)
 
 
-def build_engine(arch: str, *, device="cuda", seed: int = 0) -> Engine:
+def build_engine(arch: str, *, device="cuda", seed: int = 0,
+                 quant: str = "bf16") -> Engine:
     """The real-tier engine: the full `arch` on the card, or a reduced one
-    with `device="cpu"`. Weights are random, drawn from `seed`."""
+    with `device="cpu"`. Weights are random, drawn from `seed`, and
+    quantized layer by layer to `quant` (a key of `quant.BY_NAME`)."""
+    if quant not in BY_NAME:
+        raise ValueError(f"unknown quant {quant!r}; known: {sorted(BY_NAME)}")
     device = resolve_device(device)
     if device.type == "cpu":
         # vocab 1024: the engine draws synthetic prompt ids from [0, 1000)
@@ -42,10 +51,11 @@ def build_engine(arch: str, *, device="cuda", seed: int = 0) -> Engine:
     else:
         cfg, ecfg = get_config(arch), CARD_ENGINE
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(cfg, device=device, generator=gen)
+    params = init_params(cfg, device=device, generator=gen, quant=quant)
     ex = RealExecutor(cfg, params, num_pages=ecfg["num_pages"],
                       page_size=ecfg["page_size"],
-                      max_batch=ecfg["max_batch"], device=device)
+                      max_batch=ecfg["max_batch"], qcfg=BY_NAME[quant],
+                      device=device)
     return Engine(EngineConfig(**ecfg), ex)
 
 
@@ -81,6 +91,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama31-8b")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quant", default="bf16", choices=sorted(BY_NAME))
     ap.add_argument("--lam", type=float, default=2.0)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--io-shape", default="chat")
@@ -95,7 +106,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     scale = args.scale if args.scale is not None else (
         0.05 if device.type == "cpu" else 1.0)
-    eng = build_engine(args.arch, device=device, seed=args.seed)
+    eng = build_engine(args.arch, device=device, seed=args.seed,
+                       quant=args.quant)
     spec = ArrivalSpec(lam=args.lam, n_requests=args.requests,
                        io_shape=args.io_shape, scale=scale, seed=args.seed)
     # the real tier prices at $1/hr, as the reference's does, until an

@@ -1,2 +1,3 @@
-"""Model zoo: the dense decoder subset that the live server runs."""
+"""Model zoo: the attention decoders, dense and MoE, that the live server
+runs."""
 from repro_torch.models.model import init_params  # noqa: F401

@@ -1,8 +1,21 @@
-"""Quantization substrate — the paper's Q axis; this slice ports bf16 only.
+"""Quantization substrate — the paper's Q axis.
 
-Counterpart of `repro.quant`. `linear` is `x @ w` with weights in the
-reference's `(d_in, d_out)` layout, accumulated in fp32 and cast back to
-x's dtype. The int8 and fp8 paths arrive with their own slice.
+Counterpart of `repro.quant`, all of it:
+
+  * bf16  — the baseline.
+  * int8  — per-output-channel int8 weights and dynamic per-tensor int8
+            activations; the int8 x int8 -> int32 product runs in the
+            hand-written CUDA kernel of `repro_torch.kernels.int8_matmul`
+            (the plain version on the CPU).
+  * fp8   — e4m3 weights, dequantized to bf16 before a bf16 matmul, both
+            under `fp8` (emulated) and `fp8_native`, exactly as the
+            reference does: it has no native fp8 GEMM either.
+
+`QuantConfig` routes every matmul of the model. `quantize_tree` converts a
+bf16 parameter tree into quantized storage: each weight matrix becomes
+`{"q": (..., d_in, d_out) int8 or float8_e4m3fn, "scale": (..., 1, d_out)
+fp32}`, in the reference's layout, so the int8 kernel reads the
+reference's `(K, N)` weight as it is.
 """
 from __future__ import annotations
 
@@ -10,6 +23,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.int8_matmul import int8_matmul
 
 VALID_MODES = ("bf16", "int8", "fp8")
 
@@ -29,15 +44,91 @@ class QuantConfig:
         return 2 if self.mode == "bf16" else 1
 
 
+BF16 = QuantConfig("bf16")
+INT8 = QuantConfig("int8", native=True)
+FP8_EMULATED = QuantConfig("fp8", native=False)
+FP8_NATIVE = QuantConfig("fp8", native=True)
+
+BY_NAME = {"bf16": BF16, "int8": INT8, "fp8": FP8_EMULATED,
+           "fp8_native": FP8_NATIVE}
+
+# Leaves that are not consumed by `linear` (lookups, convs, SSM tensors).
+SKIP = {"embed", "pos_embed", "enc_pos_embed", "scale", "bias", "conv",
+        "conv_w", "A_log", "D", "router", "dt_bias", "gates"}
+
+
+def _per_channel_scale(w: torch.Tensor, qmax: float) -> torch.Tensor:
+    # Reduce over the contraction axis (-2) so stacked (..., d_in, d_out)
+    # weights quantize per output channel of each matrix.
+    amax = w.float().abs().amax(dim=-2, keepdim=True)
+    return torch.clamp(amax, min=1e-8) / qmax
+
+
+def quantize_weight(w: torch.Tensor, mode: str):
+    """-> dict(q=storage tensor, scale=(..., 1, d_out) fp32). bf16 passes
+    through with scale None."""
+    if mode == "bf16":
+        return {"q": w, "scale": None}
+    if mode == "int8":
+        scale = _per_channel_scale(w, 127.0)
+        q = torch.clamp(torch.round(w.float() / scale), -127, 127)
+        return {"q": q.to(torch.int8), "scale": scale}
+    if mode not in ("fp8", "fp8_native"):
+        raise ValueError(f"unknown quant mode {mode!r}")
+    # fp8 e4m3 (both fp8 modes store the same bytes): max normal 448
+    scale = _per_channel_scale(w, 448.0)
+    return {"q": (w.float() / scale).to(torch.float8_e4m3fn), "scale": scale}
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The reference's `q.astype(bf16) * scale.astype(bf16)`, in bf16."""
+    return q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+
+
 def linear(x: torch.Tensor, w, qcfg: Optional[QuantConfig] = None
            ) -> torch.Tensor:
-    """x @ w with fp32 accumulation, result in x's dtype.
+    """x @ w with the configured quantization, result in x's dtype. `w` is
+    a raw `(d_in, d_out)` tensor (bf16 path) or a `quantize_weight` dict.
 
-    `w` is a raw `(d_in, d_out)` tensor. The card's bf16 GEMM accumulates
-    in fp32; the runner turns off reduced-precision split-K reduction so
-    partial sums are not rounded to bf16 either.
-    """
-    if isinstance(w, dict) or (qcfg is not None and qcfg.mode != "bf16"):
-        raise NotImplementedError(
-            "int8/fp8 linear is not ported yet (ROADMAP Queue A item 6)")
-    return torch.matmul(x, w.to(x.dtype))
+    bf16: the card's GEMM accumulates in fp32 (the runner turns off
+    reduced-precision split-K reduction). int8 native: dynamic per-tensor
+    activation quantization in plain PyTorch, as the reference does it
+    outside any kernel, then the int8 kernel on `x.reshape(-1, K)`.
+    fp8 and non-native int8: dequantize to bf16, then a bf16 matmul."""
+    if isinstance(w, dict):
+        q, scale = w["q"], w["scale"]
+    else:
+        q, scale = w, None
+    if qcfg is None or qcfg.mode == "bf16" or scale is None:
+        return torch.matmul(x, q.to(x.dtype))
+
+    if qcfg.mode == "int8" and qcfg.native:
+        xf = x.float()
+        xs = torch.clamp(xf.abs().amax(), min=1e-8) / 127.0
+        xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+        K, N = q.shape
+        out = int8_matmul(xq.reshape(-1, K), q, xs.reshape(1), scale)
+        return out.reshape(*x.shape[:-1], N).to(x.dtype)
+
+    return torch.matmul(x, dequantize(q, scale).to(x.dtype))
+
+
+def quantize_tree(params, mode: str):
+    """Quantize every 2D+ bf16 weight in a parameter tree (dicts and lists
+    of tensors); norms, embeddings, the router and 1D vectors stay as they
+    are. Returns a tree where those weights become `quantize_weight`
+    dicts."""
+    if mode == "bf16":
+        return params
+
+    def visit(p, name=""):
+        if isinstance(p, dict):
+            return {k: visit(v, k) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(visit(v, name) for v in p)
+        if (isinstance(p, torch.Tensor) and p.ndim >= 2
+                and p.dtype == torch.bfloat16 and name not in SKIP):
+            return quantize_weight(p, mode)
+        return p
+
+    return visit(params)

@@ -1,6 +1,7 @@
 """Model execution against the paged KV pool (real-execution tier).
 
-Counterpart of `repro.serving.runner` for dense decoders. Fixed-shape,
+Counterpart of `repro.serving.runner` for attention decoders, dense or MoE
+(`models.moe`), in any precision of `quant.BY_NAME`. Fixed-shape,
 mask-driven step functions over `max_batch` slots:
   prefill_fn — process padded prompts for newly admitted slots, scatter K/V
                into their pages, emit the first greedy token (TTFT event).
@@ -41,7 +42,7 @@ def set_matmul_precision():
 def init_pools(cfg: ModelConfig, num_pages: int, page_size: int, *,
                device) -> List[Dict[str, torch.Tensor]]:
     """One bf16 `(num_pages, page_size, Hkv, D)` K and V pool per layer."""
-    model_lib.check_dense(cfg)
+    model_lib.check_served(cfg)
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
     return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
              "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
@@ -69,9 +70,10 @@ def _scatter_kv(pool_k, pool_v, k, v, block_tables, positions, active,
 
 def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
     """Build (prefill_fn, decode_fn) for this config."""
-    model_lib.check_dense(cfg)
+    model_lib.check_served(cfg)
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    moe_mask = cfg.moe_layer_mask()
 
     @torch.no_grad()
     def decode_fn(params, pools, block_tables, seq_lens, tokens, active):
@@ -82,7 +84,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
         positions = model_lib._positions(cfg, B, 1, offset=seq_lens,
                                          device=x.device)
         lens_after = seq_lens + active.to(torch.int32)
-        for p, pool in zip(params["layers"], pools):
+        for p, pool, is_moe in zip(params["layers"], pools, moe_mask):
             h = apply_norm(p["ln1"], x, cfg.norm_kind)
             q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
             q = attn_lib.rotate(cfg.rope_kind, q, positions, cfg.rope_theta)
@@ -92,7 +94,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
             o = paged_attention(q[:, 0], pool["k"], pool["v"], block_tables,
                                 lens_after)
             x = x + linear(o.reshape(B, 1, nq * hd), p["attn"]["wo"], qcfg)
-            x = model_lib._apply_ff(p, cfg, x, qcfg)
+            x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)
         x = apply_norm(params["final_norm"], x, cfg.norm_kind)
         logits = model_lib.unembed(params, cfg, x, qcfg)
         nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
@@ -111,7 +113,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
         positions = model_lib._positions(cfg, B, Lp, device=x.device)
         tok_active = (torch.arange(Lp, device=x.device)[None]
                       < lens[:, None]) & do_prefill[:, None]
-        for p, pool in zip(params["layers"], pools):
+        for p, pool, is_moe in zip(params["layers"], pools, moe_mask):
             h = apply_norm(p["ln1"], x, cfg.norm_kind)
             q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
             q = attn_lib.rotate(cfg.rope_kind, q, positions, cfg.rope_theta)
@@ -120,7 +122,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
             x = x + linear(o.reshape(B, Lp, nq * hd), p["attn"]["wo"], qcfg)
             _scatter_kv(pool["k"], pool["v"], k, v, block_tables, positions,
                         tok_active, page_size)
-            x = model_lib._apply_ff(p, cfg, x, qcfg)
+            x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)
         x = apply_norm(params["final_norm"], x, cfg.norm_kind)
         # logits at each request's last prompt position
         idx = (lens.long() - 1).clamp(0, Lp - 1)

@@ -3,9 +3,13 @@
 The reference stacks each unit position's parameters over the R repeats
 of its superblock (`repro.models.model.init_params`); the port keeps one
 dictionary per layer. Layer `r * U + j` is repeat r of unit position j.
-Weights keep their `(d_in, d_out)` layout, so converting is a copy. bf16
-travels bit-exactly: numpy holds it as a 2-byte type named "bfloat16",
-viewed here as uint16 and then as `torch.bfloat16`.
+Weights keep their `(d_in, d_out)` layout, so converting is a copy, and
+every leaf travels bit for bit: numpy holds bf16 as a 2-byte type named
+"bfloat16", viewed here as uint16 and then as `torch.bfloat16`, and fp8
+e4m3 as "float8_e4m3fn", viewed as uint8 and then as
+`torch.float8_e4m3fn`. Quantized weights (`{"q", "scale"}` dicts of
+`quantize_tree`) and MoE blocks (experts `(R, E, d, f)`, router `(R, d,
+E)` fp32) are cut per layer like any other leaf.
 """
 from __future__ import annotations
 
@@ -23,6 +27,9 @@ def to_torch(a, device="cpu") -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(
             torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -36,7 +43,7 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
                     device="cpu") -> Dict[str, Any]:
     """np_params: the reference's params with every leaf as a numpy array
     (e.g. `jax.tree.map(np.asarray, params)`)."""
-    model_lib.check_dense(cfg)
+    model_lib.check_served(cfg)
     U = model_lib.unit_size(cfg)
     blocks = np_params["blocks"]
     layers = [_map(blocks[i % U], lambda a, r=i // U: to_torch(a[r], device))
@@ -46,5 +53,5 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
         "final_norm": _map(np_params["final_norm"],
                            lambda a: to_torch(a, device)),
         "layers": layers,
-        "lm_head": to_torch(np_params["lm_head"], device),
+        "lm_head": _map(np_params["lm_head"], lambda a: to_torch(a, device)),
     }

@@ -1,11 +1,12 @@
-"""The port's plain attention functions against the reference's Pallas
+"""The port's plain kernel versions against the reference's Pallas
 kernels (run in interpret mode on the CPU) and its jnp oracles.
 
 The inputs are drawn with numpy from a seed and handed to both sides.
 Tolerances are those of tests/test_kernels.py: 2e-3 in f32 (fp32 softmax
 in both, summed in a different order) and 0.06 in bf16 (the output is
 rounded to bf16 by both, and the jnp oracles also round the softmax
-probabilities to bf16 before the PV product).
+probabilities to bf16 before the PV product). The int8 matmul is exact:
+an int32 sum and the same fp32 conversion and multiply on both sides.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +15,12 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_fref
+from repro.kernels.int8_matmul.ops import int8_matmul as jax_int8_matmul
+from repro.kernels.int8_matmul.ref import int8_matmul_ref as jax_int8_ref
 from repro.kernels.paged_attention.ops import paged_attention as jax_paged
 from repro.kernels.paged_attention.ref import paged_attention_ref as jax_pref
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.int8_matmul.ops import int8_matmul
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.weights import to_torch
 
@@ -112,3 +116,22 @@ def test_paged_zero_length_gives_zero_like_the_kernel():
     assert torch.all(out[[0, 2]] == 0)
     assert np.all(pallas[[0, 2]] == 0)
     _close(out, pallas, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 256, 256), (512, 512, 256),
+                                   (256, 1024, 512)])
+def test_int8_matmul_plain_equals_pallas_and_oracle(M, K, N):
+    """The shapes of tests/test_kernels.py; equality, not a tolerance."""
+    rng = np.random.default_rng(4)
+    xq = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    wq = rng.integers(-127, 128, (K, N)).astype(np.int8)
+    xs = np.asarray([0.013], np.float32)
+    ws = rng.uniform(0.001, 0.02, (1, N)).astype(np.float32)
+    out = int8_matmul(*(torch.from_numpy(a) for a in (xq, wq, xs, ws)))
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    jargs = [jnp.asarray(a) for a in (xq, wq, xs, ws)]
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(jax_int8_matmul(*jargs, use_kernel=True,
+                                                interpret=True)))
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(jax_int8_ref(*jargs)))

@@ -11,7 +11,13 @@ is |kernel - plain| <= 1e-3 + 2**-7 |plain| on every element: both sides
 compute in fp32 and round once to bf16, so they may differ by one bf16
 step of the result. The planted-fault tests show that it rejects a kernel
 that drops one page or one key tile. Shapes use head_dim 128, the one the
-kernels are compiled for, and paged attention 4 query heads per KV head.
+kernels are compiled for, and paged attention 4 or 8 query heads per KV
+head (llama31-8b, qwen3-30b-a3b).
+
+The int8 matmul is held to its plain version exactly: the int32 sums do
+not depend on their order, and the one conversion and the one multiply by
+the scales are the same on both sides. Dropping the last 128-wide K tile
+must break that equality.
 """
 import pytest
 import torch
@@ -20,6 +26,9 @@ from repro_torch.kernels import bf16_gate
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul_kernel
+from repro_torch.kernels.int8_matmul.ops import int8_matmul
+from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -53,7 +62,9 @@ def _paged_inputs(gen, B, Hq, Hkv, D, page, maxp):
     (2, 8, 2, 128, 8, 4),
     (3, 4, 1, 128, 16, 3),
     (1, 16, 4, 128, 8, 6),
-    (8, 32, 8, 128, 16, 48),           # the served shape
+    (8, 32, 8, 128, 16, 48),           # the served shape, llama31-8b
+    (2, 16, 2, 128, 8, 5),             # G = 8
+    (8, 32, 4, 128, 16, 48),           # the served shape, qwen3-30b-a3b
 ])
 def test_paged_kernel_matches_plain(gen, B, Hq, Hkv, D, page, maxp):
     q, kp, vp, bt = _paged_inputs(gen, B, Hq, Hkv, D, page, maxp)
@@ -69,10 +80,11 @@ def test_paged_kernel_matches_plain(gen, B, Hq, Hkv, D, page, maxp):
     assert bf16_gate(out, ref) <= 1
 
 
-def test_gate_rejects_paged_kernel_without_last_page(gen):
+@pytest.mark.parametrize("Hkv", [8, 4])
+def test_gate_rejects_paged_kernel_without_last_page(gen, Hkv):
     """The kernel run on one page less than its plain version, as a loop
     bound off by one page would give, fails the gate."""
-    q, kp, vp, bt = _paged_inputs(gen, 8, 32, 8, 128, 16, 48)
+    q, kp, vp, bt = _paged_inputs(gen, 8, 32, Hkv, 128, 16, 48)
     lens = torch.full((8,), 768, dtype=torch.int32, device="cuda")
     short = lens.clone()
     short[-1] -= 16
@@ -126,3 +138,60 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         paged_attention(_randn(gen, 1, 4, 128), kp, kp, bt.long(), lens)
     with pytest.raises(ValueError):       # 2 query heads per KV head
         paged_attention(_randn(gen, 1, 2, 128), kp, kp, bt, lens)
+
+
+def _int8_inputs(gen, M, K, N):
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    xs = torch.rand(1, generator=gen, device="cuda") * 0.02 + 1e-3
+    ws = torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 1e-3
+    return xq, wq, xs, ws
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 4096])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (2048, 512),
+                                 (4096, 2048)])
+def test_int8_kernel_equals_plain(gen, M, K, N):
+    """Ragged M (1, 8 and 17 rows; 4096, the prefill rows) at served
+    (K, N) of llama31-8b and qwen3-30b-a3b: bit for bit."""
+    args = _int8_inputs(gen, M, K, N)
+    n = int8_matmul_kernel.launches
+    out = int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert int8_matmul_kernel.launches == n + 1
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    assert torch.equal(out, int8_matmul_ref(*args))
+
+
+def test_int8_kernel_ragged_k_and_n(gen):
+    """K and N that are not multiples of the tiles (K 16 past a 256 tile,
+    N 8 past a 128 tile), at both tile shapes."""
+    for M in (5, 300):
+        args = _int8_inputs(gen, M, 272, 136)
+        assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
+
+
+def test_int8_exact_check_rejects_dropped_k_tile(gen):
+    """The kernel run without the last 128-wide K tile, as a tile count
+    off by one would give, is not equal to the full plain product."""
+    xq, wq, xs, ws = _int8_inputs(gen, 8, 4096, 14336)
+    out = int8_matmul(xq[:, :-128].contiguous(), wq[:-128], xs, ws)
+    ref = int8_matmul_ref(xq, wq, xs, ws)
+    assert not torch.equal(out, ref)
+    assert float((out != ref).float().mean()) > 0.9
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    xq, wq, xs, ws = _int8_inputs(gen, 8, 256, 128)
+    with pytest.raises(TypeError):
+        int8_matmul(xq.float(), wq, xs, ws)
+    with pytest.raises(TypeError):
+        int8_matmul(xq, wq, xs.double(), ws)
+    with pytest.raises(ValueError):       # K not a multiple of 16
+        int8_matmul(xq[:, :250].contiguous(), wq[:250], xs, ws)
+    with pytest.raises(ValueError):       # not contiguous
+        int8_matmul(xq, wq.t().contiguous().t(), xs, ws)
+    with pytest.raises(ValueError):       # one operand on the CPU
+        int8_matmul(xq, wq.cpu(), xs, ws)

@@ -95,9 +95,20 @@ def test_linear(dtype):
 
 
 def test_linear_quantized_not_ported():
-    from repro_torch.quant import QuantConfig
-    with pytest.raises(NotImplementedError):
-        tlinear(torch.zeros(2, 4), torch.zeros(4, 4), QuantConfig("int8"))
+    """A native fp8 GEMM is not ported, because the reference has none:
+    `fp8_native` dequantizes to bf16 exactly as the emulated `fp8` does,
+    bit for bit, and matches the reference within one bf16 step."""
+    from repro.quant import BY_NAME as JBY_NAME
+    from repro.quant import quantize_weight as jquantize_weight
+    from repro_torch.quant import BY_NAME, quantize_weight
+    rng = np.random.default_rng(4)
+    xj, xt = _pair(rng, (4, 3, 64), "bfloat16")
+    wj, wt = _pair(rng, (64, 96), "bfloat16", scale=0.02)
+    native = tlinear(xt, quantize_weight(wt, "fp8"), BY_NAME["fp8_native"])
+    emulated = tlinear(xt, quantize_weight(wt, "fp8"), BY_NAME["fp8"])
+    assert torch.equal(native, emulated)
+    _close(native, jlinear(xj, jquantize_weight(wj, "fp8"),
+                           JBY_NAME["fp8_native"]), "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -133,3 +144,64 @@ def test_init_params_shapes_and_scale():
     full = get_config("llama31-8b")
     assert (full.d_model, full.num_heads, full.num_kv_heads, full.d_ff,
             full.vocab_size) == (4096, 32, 8, 14336, 128256)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("arch", ["llama31-8b", "qwen3-30b-a3b"])
+def test_params_from_jax_quantized_and_moe_bit_exact(mode, arch):
+    """Quantized leaves ({"q", "scale"} stacked over R; fp8 through a uint8
+    view) and MoE blocks (experts (R, E, d, f), router (R, d, E) fp32)
+    arrive bit for bit, cut per layer."""
+    from repro.quant import quantize_tree as jquantize_tree
+    cfg = jax_reduced(arch, vocab=1024)
+    jp = jquantize_tree(jax_init_params(jax.random.PRNGKey(0), cfg), mode)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp),
+                         reduced(arch, vocab=1024))
+    qdtype = torch.int8 if mode == "int8" else torch.float8_e4m3fn
+    ff = ("moe", "experts_up") if cfg.moe else ("mlp", "up")
+    for r in range(cfg.num_layers):
+        blk = jp["blocks"][0]
+        for path in (("attn", "wq"), ("attn", "wo"), ff):
+            leaf = blk[path[0]][path[1]]
+            got = tp["layers"][r][path[0]][path[1]]
+            assert got["q"].dtype == qdtype
+            np.testing.assert_array_equal(
+                got["q"].view(torch.uint8 if mode == "fp8" else torch.int8)
+                .numpy(),
+                np.asarray(leaf["q"][r]).view(np.uint8 if mode == "fp8"
+                                              else np.int8))
+            np.testing.assert_array_equal(got["scale"].numpy(),
+                                          np.asarray(leaf["scale"][r]))
+        if cfg.moe:
+            router = tp["layers"][r]["moe"]["router"]
+            assert router.dtype == torch.float32
+            assert router.shape == (cfg.d_model, cfg.moe.num_experts)
+            np.testing.assert_array_equal(
+                router.numpy(), np.asarray(blk["moe"]["router"][r]))
+            assert got["q"].shape == (cfg.moe.num_experts, cfg.d_model,
+                                      cfg.moe.expert_ff)
+    assert tp["lm_head"]["q"].dtype == qdtype
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8", "fp8"])
+def test_init_params_moe_quantized(quant):
+    """qwen3's MoE blocks drawn and quantized layer by layer, the lm_head
+    too; the embedding and the router are not quantized."""
+    cfg = reduced("qwen3-30b-a3b", vocab=1024)
+    p = init_params(cfg, device="cpu", quant=quant,
+                    generator=torch.Generator().manual_seed(0))
+    moe = p["layers"][1]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert p["embed"].dtype == torch.bfloat16
+    if quant == "bf16":
+        assert moe["experts_up"].shape == (4, 64, 128)
+        assert p["lm_head"].dtype == torch.bfloat16
+    else:
+        assert set(moe["experts_up"]) == {"q", "scale"}
+        assert moe["experts_up"]["scale"].shape == (4, 1, 128)
+        assert set(p["lm_head"]) == {"q", "scale"}
+        assert set(p["layers"][0]["attn"]["wq"]) == {"q", "scale"}
+    full = get_config("qwen3-30b-a3b")
+    assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+            full.moe.num_experts, full.moe.top_k, full.moe.expert_ff,
+            full.vocab_size) == (48, 2048, 32, 4, 128, 8, 768, 151936)

@@ -1,9 +1,13 @@
 """The port's step functions against the reference's `make_step_fns`.
 
-Both run `reduced("llama31-8b", vocab=1024)` on the same converted
-weights and the same numpy-drawn prompts, on the CPU (the port through
-its kernels' plain versions). The schedule admits three slots, decodes,
-admits the fourth while the others hold their context, and decodes again.
+Both run `reduced(arch, vocab=1024)` on the same converted weights and
+the same numpy-drawn prompts, on the CPU (the port through its kernels'
+plain versions): llama31-8b (dense) and qwen3-30b-a3b (MoE), and
+llama31-8b under int8. The schedule admits three slots, decodes, admits
+the fourth while the others hold their context, and decodes again. Both
+sides feed the same padding: MoE capacity is shared by every row of a
+group, padded rows and inactive slots included, so the reference's dropped
+tokens depend on them.
 """
 import jax
 import jax.numpy as jnp
@@ -13,8 +17,11 @@ import torch
 
 from repro.configs import reduced as jax_reduced
 from repro.models import init_params as jax_init_params
+from repro.quant import BY_NAME as JBY_NAME
+from repro.quant import quantize_tree as jquantize_tree
 from repro.serving import runner as jrunner
 from repro_torch.configs import reduced
+from repro_torch.quant import BY_NAME, SKIP
 from repro_torch.serving import runner as trunner
 from repro_torch.weights import params_from_jax
 
@@ -24,10 +31,27 @@ LENS_2 = np.array([0, 0, 29, 0], np.int32)      # then slot 2 arrives
 STEPS = 5                                       # decode steps per phase
 
 
-def _setup(dtype):
-    jcfg = jax_reduced("llama31-8b", vocab=1024)
-    tcfg = reduced("llama31-8b", vocab=1024)
+def _bf16_weights(tree, name=""):
+    """Cast the weight matrices that `quantize_tree` quantizes to bf16;
+    embeddings, norms and the router keep their dtype."""
+    if isinstance(tree, dict):
+        return {k: _bf16_weights(v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_bf16_weights(v, name) for v in tree)
+    if tree.ndim >= 2 and name not in SKIP:
+        return tree.astype(jnp.bfloat16)
+    return tree
+
+
+def _setup(dtype, arch="llama31-8b", quant="bf16"):
+    """Reference params (`quant` int8: f32 params whose weight matrices
+    are cast to bf16 and quantized, so everything but the int8 products
+    runs in f32) and their conversion for the port."""
+    jcfg = jax_reduced(arch, vocab=1024)
+    tcfg = reduced(arch, vocab=1024)
     jp = jax_init_params(jax.random.PRNGKey(7), jcfg, dtype=jnp.dtype(dtype))
+    if quant != "bf16":
+        jp = jquantize_tree(_bf16_weights(jp), quant)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
     bt = np.arange(1, 1 + B * MAXP, dtype=np.int32).reshape(B, MAXP)
     return jcfg, tcfg, jp, tp, bt
@@ -36,10 +60,13 @@ def _setup(dtype):
 class _Pair:
     """Drives the JAX and the port step functions side by side."""
 
-    def __init__(self, dtype):
-        self.jcfg, self.tcfg, self.jp, self.tp, bt = _setup(dtype)
-        self.jpre, self.jdec = jrunner.make_step_fns(self.jcfg, PAGE)
-        self.tpre, self.tdec = trunner.make_step_fns(self.tcfg, PAGE)
+    def __init__(self, dtype, arch="llama31-8b", quant="bf16"):
+        self.jcfg, self.tcfg, self.jp, self.tp, bt = _setup(dtype, arch,
+                                                            quant)
+        self.jpre, self.jdec = jrunner.make_step_fns(self.jcfg, PAGE,
+                                                     qcfg=JBY_NAME[quant])
+        self.tpre, self.tdec = trunner.make_step_fns(self.tcfg, PAGE,
+                                                     qcfg=BY_NAME[quant])
         self.jpools = jrunner.init_pools(self.jcfg, NUM_PAGES, PAGE, B)
         self.tpools = trunner.init_pools(self.tcfg, NUM_PAGES, PAGE,
                                          device="cpu")
@@ -111,17 +138,30 @@ def _run(pair, feed_from_jax):
     return streams_j, streams_t, diffs
 
 
-def test_f32_tokens_identical():
-    """f32 parameters: the same greedy tokens at every prefill and at each
-    of 2 x 5 decode steps, each side fed its own tokens. (The pools are
-    bf16 on both sides, as in the reference.)"""
-    pair = _Pair("float32")
+def _tokens_identical(arch="llama31-8b", quant="bf16"):
+    pair = _Pair("float32", arch, quant)
     sj, st, diffs = _run(pair, feed_from_jax=False)
     for a, b in zip(sj, st):
         np.testing.assert_array_equal(a, b)
     # f32 K/V agree to fp32 rounding before the bf16 store; a store can
     # round to the neighbouring bf16 value, one step at |x| < 2 is 2**-7.
     assert max(diffs) <= 2 ** -7
+
+
+def test_f32_tokens_identical():
+    """f32 parameters: the same greedy tokens at every prefill and at each
+    of 2 x 5 decode steps, each side fed its own tokens. (The pools are
+    bf16 on both sides, as in the reference.)"""
+    _tokens_identical()
+
+
+@pytest.mark.parametrize("arch,quant", [("qwen3-30b-a3b", "bf16"),
+                                        ("llama31-8b", "int8")])
+def test_f32_tokens_identical_moe_and_int8(arch, quant):
+    """As above for the MoE model, and for int8 weight matrices under
+    `BY_NAME["int8"]` with f32 activations (the int8 products are exact
+    on both sides)."""
+    _tokens_identical(arch, quant)
 
 
 def test_bf16_pools_match():

@@ -170,3 +170,22 @@ def test_cpu_server_meters_every_request(capsys):
     tserve.main(["--device", "cpu", "--lam", "5", "--requests", "4"])
     out = capsys.readouterr().out
     assert "$/MTok=" in out and "completed 4/4" in out
+
+
+@pytest.mark.parametrize("arch,quant", [("qwen3-30b-a3b", "int8"),
+                                        ("qwen3-30b-a3b", "fp8"),
+                                        ("llama31-8b", "int8")])
+def test_cpu_server_serves_moe_and_quantized(arch, quant, capsys):
+    tserve.main(["--device", "cpu", "--arch", arch, "--quant", quant,
+                 "--lam", "5", "--requests", "4"])
+    out = capsys.readouterr().out
+    assert "$/MTok=" in out and "completed 4/4" in out
+
+
+def test_build_engine_quantizes_and_routes_through_qcfg():
+    eng = tserve.build_engine("qwen3-30b-a3b", device="cpu", quant="int8")
+    layer = eng.ex.params["layers"][0]
+    assert layer["attn"]["wq"]["q"].dtype == torch.int8
+    assert layer["moe"]["experts_down"]["q"].dtype == torch.int8
+    with pytest.raises(ValueError, match="unknown quant"):
+        tserve.build_engine("llama31-8b", device="cpu", quant="int4")

@@ -11,7 +11,7 @@ them, and then:
     around work that ends in `torch.cuda.synchronize()`);
   * traces one prefill call and `--steps` decode steps with
     `torch.profiler`, and sums device time by kernel and by group
-    (matmul, the three kernels of the port, everything else).
+    (matmul, the four kernels of the port, everything else).
 The device's busy share is the summed kernel time over the traced wall
 time. Prints one JSON object, with every number, as its last line.
 """
@@ -39,6 +39,8 @@ def group_of(name: str) -> str:
         return "flash_attention"
     if "int8_matmul" in n:
         return "int8_matmul"
+    if "ssm_scan" in n:
+        return "ssm_scan"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                             "splitk")):
         return "matmul"

@@ -1,9 +1,9 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
 Counterpart of `repro.configs`. The port holds the configurations it
-serves: the paper's dense reference model, llama31-8b, and its
-ultra-sparse MoE, qwen3-30b-a3b; the others arrive with the slices that
-serve them.
+serves: the paper's dense reference model, llama31-8b, its ultra-sparse
+MoE, qwen3-30b-a3b, and the hybrid Mamba + attention + MoE
+jamba-v0.1-52b; the others arrive with the slices that serve them.
 
 `reduced(name)` returns a tiny same-family config for CPU tests.
 """
@@ -25,9 +25,10 @@ from repro_torch.configs.base import (  # noqa: F401
     SSMConfig,
     XLSTMConfig,
 )
-from repro_torch.configs import llama31_8b, qwen3_30b_a3b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    jamba_v0_1_52b, llama31_8b, qwen3_30b_a3b)
 
-_MODULES = (llama31_8b, qwen3_30b_a3b)
+_MODULES = (llama31_8b, qwen3_30b_a3b, jamba_v0_1_52b)
 
 _REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -6,7 +6,11 @@
 // or full, fp32 scores scaled by 1/sqrt(D), fp32 online softmax and fp32
 // accumulator. Any Sq and Sk: the kernel masks the ragged edge itself, so
 // the Pallas kernel's divisibility assert (prompts are padded to multiples
-// of 64, not 128) does not apply.
+// of 64, not 128) does not apply. An optional kv_len (B,) masks keys at or
+// past kv_len[b], as the reference model's prefill attention does for
+// padded prompts; a sequence with kv_len 0 gets there the softmax of
+// all-equal masked scores, the mean of V over all Sk keys, and here too,
+// from one pass over V with no scores.
 //
 // What bounds it on this card: it does 4*Sq*Sk*D/2 FLOPs per (sequence,
 // head) against 2*(2*Sq + 2*Sk/G)*D bytes (q and out per query head, K
@@ -81,6 +85,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
+                       const int* __restrict__ kv_len,
                        __nv_bfloat16* __restrict__ out, int Sq, int Sk,
                        int Hq, int Hkv, int causal, float scale) {
   constexpr int DT = D / 16;      // output columns per thread
@@ -95,6 +100,35 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = qb * BQ;
 
+  // keys below kvl are valid; with none valid (kv_len 0) every key gets
+  // the same weight, whatever the causal mask, so each row is the mean of
+  // V over all Sk keys: one pass over V, with no scores
+  const int kvl = kv_len == nullptr ? Sk : min(Sk, kv_len[b]);
+  if (kvl <= 0) {
+    constexpr int R = THREADS / D;            // rows summed side by side
+    static_assert(THREADS % D == 0, "a whole number of rows per pass");
+    const int d = threadIdx.x % D, r0 = threadIdx.x / D;
+    float sum = 0.f;
+    for (int row = r0; row < Sk; row += R)
+      sum += __bfloat162float(v[(((size_t)b * Sk + row) * Hkv + hk) * D + d]);
+    smem[r0 * D + d] = sum;
+    __syncthreads();
+    if (threadIdx.x < D) {
+      float t = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) t += smem[r * D + threadIdx.x];
+      smem[R * D + threadIdx.x] = t / (float)Sk;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
+      const int row = q0 + idx / D;
+      if (row < Sq)
+        out[(((size_t)b * Sq + row) * Hq + h) * D + idx % D] =
+            __float2bfloat16(smem[R * D + idx % D]);
+    }
+    return;
+  }
+
   load_tile<D, D + 1>(Qs, q, b, h, q0, Sq, Hq, scale);
 
   float m[4], l[4], acc[4][DT];
@@ -106,7 +140,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < DT; ++j) acc[i][j] = 0.f;
   }
 
-  int n_kt = (Sk + BK - 1) / BK;
+  int n_kt = (kvl + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, min(q0 + BQ - 1, Sq - 1) / BK + 1);
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -142,7 +176,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        ok[j] = col < Sk && (!causal || col <= row);
+        ok[j] = col < kvl && (!causal || col <= row);
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -189,8 +223,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Sq,
-                   int Sk, int Hq, int Hkv, int causal, cudaStream_t st) {
+                   const __nv_bfloat16* v, const int* kv_len,
+                   __nv_bfloat16* o, int B, int Sq, int Sk, int Hq, int Hkv,
+                   int causal, cudaStream_t st) {
   constexpr size_t bytes = smem_floats<D>() * sizeof(float);
   static bool configured = false;
   if (!configured) {
@@ -202,24 +237,26 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   }
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_attention_kernel<D><<<grid, THREADS, bytes, st>>>(
-      q, k, v, o, Sq, Sk, Hq, Hkv, causal, 1.0f / sqrtf((float)D));
+      q, k, v, kv_len, o, Sq, Sk, Hq, Hkv, causal, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Instantiated for the head_dim of the registered configs (llama31-8b:
-// 128). A config that needs another adds its instantiation here and in the
-// wrapper's list.
+// Instantiated for the head_dim of the registered configs (128). A config
+// that needs another adds its instantiation here and in the wrapper's
+// list. kv_len may be null: every key is then valid.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int Sq,
-                                    int Sk, int Hq, int Hkv, int D,
-                                    int causal, void* stream) {
+                                    const void* v, const void* kv_len,
+                                    void* out, int B, int Sq, int Sk, int Hq,
+                                    int Hkv, int D, int causal,
+                                    void* stream) {
   if (Hkv <= 0 || Hq % Hkv || Sk <= 0 || D != 128)
     return cudaErrorInvalidValue;
   return launch<128>(static_cast<const __nv_bfloat16*>(q),
                      static_cast<const __nv_bfloat16*>(k),
                      static_cast<const __nv_bfloat16*>(v),
+                     static_cast<const int*>(kv_len),
                      static_cast<__nv_bfloat16*>(out), B, Sq, Sk, Hq, Hkv,
                      causal, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,6 @@
-"""Model assembly for attention decoders, dense or MoE: parameters,
-embedding, unembedding, the feed-forward half of a block.
+"""Model assembly for attention decoders, dense or MoE, and hybrids of
+attention and Mamba layers: parameters, embedding, unembedding, the
+feed-forward half of a block.
 
 Counterpart of `repro.models.model`, the served subset. The reference stacks
 each layer's parameters over the R repeats of its superblock and scans
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed_init, init_mlp, init_norm,
     softcap)
@@ -52,12 +54,13 @@ def unit_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
 
 def check_served(cfg: ModelConfig):
     """Raise for a configuration the port does not serve yet: it serves
-    attention decoders, dense or MoE, with untied embeddings."""
+    decoders of attention and Mamba layers, dense or MoE, with untied
+    embeddings; not mLSTM/sLSTM blocks or encoder-decoders."""
     kinds = {kind for kind, _ in unit_pattern(cfg)}
-    if cfg.family == "encdec" or kinds != {"attn"}:
+    if cfg.family == "encdec" or not kinds <= {"attn", "mamba"}:
         raise NotImplementedError(
-            f"{cfg.name}: only attention decoders (dense or MoE) are ported "
-            "so far (ROADMAP Queue A items 8-9)")
+            f"{cfg.name}: only decoders of attention and Mamba layers are "
+            "ported so far (ROADMAP Queue A items 8-9)")
     if cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: tied embeddings not ported")
 
@@ -77,10 +80,13 @@ def init_params(cfg: ModelConfig, *, device, generator: torch.Generator,
     d, hd = cfg.d_model, cfg.resolved_head_dim
     kw = dict(device=device, generator=generator, dtype=dtype)
     layers = []
-    for is_moe in cfg.moe_layer_mask():
-        p = {"ln1": init_norm(cfg.norm_kind, d, device=device, dtype=dtype),
-             "attn": attn.init_attention(d, cfg.num_heads, cfg.num_kv_heads,
-                                         hd, **kw)}
+    for kind, is_moe in zip(cfg.block_pattern(), cfg.moe_layer_mask()):
+        p = {"ln1": init_norm(cfg.norm_kind, d, device=device, dtype=dtype)}
+        if kind == "attn":
+            p["attn"] = attn.init_attention(d, cfg.num_heads,
+                                            cfg.num_kv_heads, hd, **kw)
+        else:
+            p["mamba"] = ssm_lib.init_mamba(d, cfg.ssm, **kw)
         if is_moe:
             p["ln2"] = init_norm(cfg.norm_kind, d, device=device, dtype=dtype)
             p["moe"] = moe_lib.init_moe(d, cfg.moe, cfg.mlp_kind, **kw)

@@ -2,9 +2,10 @@
 
 Counterpart of `repro.serving.executors.RealExecutor`, with the same
 interface: `needs_tokens`, `reset_slot`, `prefill`, `decode` and the
-per-step `decode_multi`. It owns the device state (KV pools, seq_lens),
-runs the step functions of `repro_torch.serving.runner`, and returns
-durations in wall-clock seconds, each taken after
+per-step `decode_multi`. It owns the device state (KV pools, Mamba
+states, seq_lens), runs the step functions of
+`repro_torch.serving.runner`, and returns durations in wall-clock
+seconds, each taken after
 `torch.cuda.synchronize()` on the card. The sim tier waits for an H100
 step-time model.
 """
@@ -43,7 +44,8 @@ class RealExecutor:
         self.cfg = cfg
         self.params = params
         self.page_size = page_size
-        self.pools = init_pools(cfg, num_pages, page_size, device=self.device)
+        self.pools = init_pools(cfg, num_pages, page_size, max_batch,
+                                device=self.device)
         self.seq_lens = torch.zeros((max_batch,), dtype=torch.int32,
                                     device=self.device)
         self.prefill_fn, self.decode_fn = make_step_fns(cfg, page_size,

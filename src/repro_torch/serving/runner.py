@@ -1,20 +1,29 @@
 """Model execution against the paged KV pool (real-execution tier).
 
-Counterpart of `repro.serving.runner` for attention decoders, dense or MoE
-(`models.moe`), in any precision of `quant.BY_NAME`. Fixed-shape,
-mask-driven step functions over `max_batch` slots:
+Counterpart of `repro.serving.runner` for decoders of attention and Mamba
+layers, dense or MoE (`models.moe`), in any precision of `quant.BY_NAME`.
+Fixed-shape, mask-driven step functions over `max_batch` slots:
   prefill_fn — process padded prompts for newly admitted slots, scatter K/V
-               into their pages, emit the first greedy token (TTFT event).
+               into their pages, set their Mamba states, emit the first
+               greedy token (TTFT event).
   decode_fn  — one token for every active slot through the paged-attention
-               op.
+               op and the Mamba decode step.
 
 Attention runs in this package's kernels: prefill through the flash op
-with a top-left causal mask, decode through the paged op. Prefill needs
-no padding mask: a row below its slot's prompt length attends only to
-columns at or before itself, which are all valid prompt tokens, so it
-gets exactly what the reference's `causal_attention(kv_len=lens)` gives
-it. Rows at or past the prompt length differ, and are thrown away: their
-K/V writes go to the trash page and their logits are never read.
+with a top-left causal mask and the reference's padding mask
+(`causal_attention(kv_len=lens)`: keys at or past a slot's prompt length
+are masked), decode through the paged op. Rows at or past the prompt
+length write their K/V to the trash page and their logits are never
+read, but their activations still flow on: into the MoE capacity queues,
+and into the state of a Mamba layer that follows, so they must be the
+reference's too.
+
+A Mamba layer keeps per-slot O(1) state (`conv`, `h`) instead of pages,
+and runs its recurrence in the selective-scan kernel. As in the
+reference, its prefill runs over all `Lp` padded positions with no length
+mask, so the state a slot carries into decode has also seen the pad
+tokens after its prompt; only slots that prefill (or, at decode, that are
+active) take the new state (`_mask_state`).
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_norm
 from repro_torch.quant import linear
 
@@ -39,14 +49,24 @@ def set_matmul_precision():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def init_pools(cfg: ModelConfig, num_pages: int, page_size: int, *,
-               device) -> List[Dict[str, torch.Tensor]]:
-    """One bf16 `(num_pages, page_size, Hkv, D)` K and V pool per layer."""
+def init_pools(cfg: ModelConfig, num_pages: int, page_size: int,
+               max_batch: int, *, device) -> List[Dict[str, torch.Tensor]]:
+    """The device state, one dict per layer: for an attention layer a bf16
+    `(num_pages, page_size, Hkv, D)` K and V pool, for a Mamba layer the
+    per-slot states `conv` `(max_batch, d_conv - 1, di)` bf16 and `h`
+    `(max_batch, di, N)` fp32."""
     model_lib.check_served(cfg)
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
-            for _ in range(cfg.num_layers)]
+    pools = []
+    for kind in cfg.block_pattern():
+        if kind == "attn":
+            pools.append({
+                "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)})
+        else:
+            pools.append(ssm_lib.init_mamba_state(max_batch, cfg.d_model,
+                                                  cfg.ssm, device=device))
+    return pools
 
 
 def _scatter_kv(pool_k, pool_v, k, v, block_tables, positions, active,
@@ -68,32 +88,49 @@ def _scatter_kv(pool_k, pool_v, k, v, block_tables, positions, active,
     pool_v[pf, of] = v.reshape((-1,) + v.shape[2:]).to(pool_v.dtype)
 
 
+def _mask_state(pool, new, active):
+    """Per-slot state update, in place: slots where `active` (B,) is set
+    take `new`, the others keep `pool`'s state."""
+    for name, n in new.items():
+        a = active.reshape((-1,) + (1,) * (n.ndim - 1))
+        pool[name].copy_(torch.where(a, n.to(pool[name].dtype), pool[name]))
+
+
 def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
     """Build (prefill_fn, decode_fn) for this config."""
     model_lib.check_served(cfg)
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    moe_mask = cfg.moe_layer_mask()
+    layers = list(zip(cfg.block_pattern(), cfg.moe_layer_mask()))
 
     @torch.no_grad()
     def decode_fn(params, pools, block_tables, seq_lens, tokens, active):
-        """tokens: (B,) int32. Writes the new K/V into `pools`. Returns
-        (next_tokens, seq_lens + active)."""
+        """tokens: (B,) int32. Writes the new K/V and Mamba states into
+        `pools`. Returns (next_tokens, seq_lens + active)."""
         B = tokens.shape[0]
         x = model_lib.embed_tokens(params, cfg, tokens[:, None])
         positions = model_lib._positions(cfg, B, 1, offset=seq_lens,
                                          device=x.device)
         lens_after = seq_lens + active.to(torch.int32)
-        for p, pool, is_moe in zip(params["layers"], pools, moe_mask):
+        for p, pool, (kind, is_moe) in zip(params["layers"], pools, layers):
             h = apply_norm(p["ln1"], x, cfg.norm_kind)
-            q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
-            q = attn_lib.rotate(cfg.rope_kind, q, positions, cfg.rope_theta)
-            k = attn_lib.rotate(cfg.rope_kind, k, positions, cfg.rope_theta)
-            _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
-                        seq_lens[:, None], active[:, None], page_size)
-            o = paged_attention(q[:, 0], pool["k"], pool["v"], block_tables,
-                                lens_after)
-            x = x + linear(o.reshape(B, 1, nq * hd), p["attn"]["wo"], qcfg)
+            if kind == "attn":
+                q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
+                q = attn_lib.rotate(cfg.rope_kind, q, positions,
+                                    cfg.rope_theta)
+                k = attn_lib.rotate(cfg.rope_kind, k, positions,
+                                    cfg.rope_theta)
+                _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
+                            seq_lens[:, None], active[:, None], page_size)
+                o = paged_attention(q[:, 0], pool["k"], pool["v"],
+                                    block_tables, lens_after)
+                x = x + linear(o.reshape(B, 1, nq * hd), p["attn"]["wo"],
+                               qcfg)
+            else:
+                y, st = ssm_lib.mamba_decode_step(p["mamba"], h, pool,
+                                                  cfg.ssm, qcfg)
+                x = x + y
+                _mask_state(pool, st, active)
             x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)
         x = apply_norm(params["final_norm"], x, cfg.norm_kind)
         logits = model_lib.unembed(params, cfg, x, qcfg)
@@ -105,23 +142,33 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
                    do_prefill):
         """tokens: (B, Lpad) int32; lens: (B,); do_prefill: (B,) bool.
 
-        Processes prompts for flagged slots, writing their K/V into
-        `pools`; returns (first_tokens, seq_lens) with seq_lens set to lens
-        for those slots."""
+        Processes prompts for flagged slots, writing their K/V and Mamba
+        states into `pools`; returns (first_tokens, seq_lens) with
+        seq_lens set to lens for those slots."""
         B, Lp = tokens.shape
         x = model_lib.embed_tokens(params, cfg, tokens)
         positions = model_lib._positions(cfg, B, Lp, device=x.device)
         tok_active = (torch.arange(Lp, device=x.device)[None]
                       < lens[:, None]) & do_prefill[:, None]
-        for p, pool, is_moe in zip(params["layers"], pools, moe_mask):
+        for p, pool, (kind, is_moe) in zip(params["layers"], pools, layers):
             h = apply_norm(p["ln1"], x, cfg.norm_kind)
-            q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
-            q = attn_lib.rotate(cfg.rope_kind, q, positions, cfg.rope_theta)
-            k = attn_lib.rotate(cfg.rope_kind, k, positions, cfg.rope_theta)
-            o = flash_attention(q, k, v, causal=True)
-            x = x + linear(o.reshape(B, Lp, nq * hd), p["attn"]["wo"], qcfg)
-            _scatter_kv(pool["k"], pool["v"], k, v, block_tables, positions,
-                        tok_active, page_size)
+            if kind == "attn":
+                q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
+                q = attn_lib.rotate(cfg.rope_kind, q, positions,
+                                    cfg.rope_theta)
+                k = attn_lib.rotate(cfg.rope_kind, k, positions,
+                                    cfg.rope_theta)
+                o = flash_attention(q, k, v, causal=True,
+                                    kv_len=lens.to(torch.int32))
+                x = x + linear(o.reshape(B, Lp, nq * hd), p["attn"]["wo"],
+                               qcfg)
+                _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
+                            positions, tok_active, page_size)
+            else:
+                # over all Lp positions, pads included, as the reference
+                y, st = ssm_lib.apply_mamba(p["mamba"], h, cfg.ssm, qcfg)
+                x = x + y
+                _mask_state(pool, st, do_prefill)
             x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)
         x = apply_norm(params["final_norm"], x, cfg.norm_kind)
         # logits at each request's last prompt position

@@ -8,8 +8,11 @@ every leaf travels bit for bit: numpy holds bf16 as a 2-byte type named
 "bfloat16", viewed here as uint16 and then as `torch.bfloat16`, and fp8
 e4m3 as "float8_e4m3fn", viewed as uint8 and then as
 `torch.float8_e4m3fn`. Quantized weights (`{"q", "scale"}` dicts of
-`quantize_tree`) and MoE blocks (experts `(R, E, d, f)`, router `(R, d,
-E)` fp32) are cut per layer like any other leaf.
+`quantize_tree`), MoE blocks (experts `(R, E, d, f)`, router `(R, d,
+E)` fp32) and Mamba blocks (projections, `conv_w (R, di, k)`, and the
+fp32 `A_log (R, di, N)`, `D (R, di)` and `dt_bias (R, di)`) are cut per
+layer like any other leaf. `pools_from_jax` cuts the reference's serving
+state (K/V pools and Mamba states, stacked the same way) per layer.
 """
 from __future__ import annotations
 
@@ -55,3 +58,12 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
         "layers": layers,
         "lm_head": _map(np_params["lm_head"], lambda a: to_torch(a, device)),
     }
+
+
+def pools_from_jax(np_pools, cfg: ModelConfig, *, device="cpu"):
+    """The reference's `runner.init_pools` state (one dict per unit
+    position, each leaf `(R, ...)`, as numpy arrays) as the port's list of
+    one dict per layer."""
+    U = model_lib.unit_size(cfg)
+    return [_map(np_pools[i % U], lambda a, r=i // U: to_torch(a[r], device))
+            for i in range(cfg.num_layers)]

@@ -135,3 +135,29 @@ def test_int8_matmul_plain_equals_pallas_and_oracle(M, K, N):
                                                 interpret=True)))
     np.testing.assert_array_equal(out.numpy(),
                                   np.asarray(jax_int8_ref(*jargs)))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_kv_len_matches_reference_attention(causal):
+    """With `kv_len`, the plain version masks keys at or past each
+    sequence's length as the reference model's prefill attention does
+    (`causal_attention(kv_len=)`, f32), including a sequence with
+    kv_len 0, which both give the mean of V over all keys."""
+    from repro.models.attention import causal_attention
+    rng = np.random.default_rng(4)
+    B, S, Hq, Hkv, D = 4, 70, 4, 2, 16
+    q, tq = _pair(rng, (B, S, Hq, D), jnp.float32)
+    k, tk = _pair(rng, (B, S, Hkv, D), jnp.float32)
+    v, tv = _pair(rng, (B, S, Hkv, D), jnp.float32)
+    lens = np.array([5, 0, 70, 33], np.int32)
+    if causal:
+        ref = causal_attention(q, k, v, kv_len=jnp.asarray(lens))
+    else:                  # the reference's mask without the causal part
+        ref = causal_attention(q, k, v, q_offset=S,
+                               kv_len=jnp.asarray(lens))
+    out = flash_attention(tq, tk, tv, causal=causal,
+                          kv_len=torch.from_numpy(lens))
+    _close(out, ref, 1e-5)
+    np.testing.assert_allclose(out[1].numpy(), np.broadcast_to(
+        np.repeat(np.asarray(v[1]).mean(0), Hq // Hkv, axis=0),
+        (S, Hq, D)), atol=1e-5)

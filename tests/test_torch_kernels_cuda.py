@@ -18,11 +18,20 @@ The int8 matmul is held to its plain version exactly: the int32 sums do
 not depend on their order, and the one conversion and the one multiply by
 the scales are the same on both sides. Dropping the last 128-wide K tile
 must break that equality.
+
+The selective scan is held to its plain version by `fp32_gate <= 1`, that
+is |kernel - plain| <= 1e-5 + 1e-4 |plain| on every element of y and
+h_final: the same fp32 recurrence, but nvcc contracts a*h + b into FMAs
+and the plain version sums over N in another order. Running the decode
+step with h0 read as zeros, or a prefill without its last 32 steps, must
+fail it.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import bf16_gate
+import torch.nn.functional as F
+
+from repro_torch.kernels import bf16_gate, fp32_gate
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -32,6 +41,9 @@ from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.serving.runner import set_matmul_precision
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +134,21 @@ def test_gate_rejects_flash_kernel_without_last_key_tile(gen):
     assert bf16_gate(out, flash_attention_ref(q, k, v, causal=True)) > 1
 
 
+@pytest.mark.parametrize("lens", [[512, 0, 1, 63, 64, 300, 511, 37],
+                                  [0, 0], [5, 130],
+                                  [512] * 4 + [0] * 4])   # a served mix
+def test_flash_kernel_kv_len_matches_plain(gen, lens):
+    """The prefill's padding mask: keys at or past kv_len[b] masked; a
+    sequence with kv_len 0 gets the mean of V over all keys."""
+    B, S = len(lens), max(lens) or 64
+    q = _randn(gen, B, S, 32, 128)
+    k, v = _randn(gen, B, S, 8, 128), _randn(gen, B, S, 8, 128)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+    ref = flash_attention_ref(q, k, v, causal=True, kv_len=kv_len)
+    assert bf16_gate(out, ref) <= 1
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _randn(gen, 1, 64, 4, 128)
     with pytest.raises(TypeError):
@@ -195,3 +222,70 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take(gen):
         int8_matmul(xq, wq.t().contiguous().t(), xs, ws)
     with pytest.raises(ValueError):       # one operand on the CPU
         int8_matmul(xq, wq.cpu(), xs, ws)
+
+
+def _ssm_inputs(gen, B, S, di, N, with_h0):
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda") \
+        .expand(di, N).contiguous()
+    return (r(B, S, di), F.softplus(r(B, S, di)), r(B, S, N), r(B, S, N), A,
+            r(di), r(B, di, N) if with_h0 else None)
+
+
+@pytest.mark.parametrize("S", [1, 64, 320, 512])
+@pytest.mark.parametrize("di", [1024, 8192])
+def test_ssm_kernel_matches_plain(gen, S, di):
+    """The served N = 16 with a random h0: S 1 (decode), 64, 320 (a
+    multiple of 64 but not of the Pallas kernel's 256-step chunk) and
+    512; d_inner 1024 (the small-input model's) and 8192 (jamba's)."""
+    args = _ssm_inputs(gen, 8, S, di, 16, True)
+    n = ssm_scan_kernel.launches
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_kernel.launches == n + 1
+    yr, hr = ssm_scan_ref(*args)
+    assert fp32_gate(y, yr) <= 1 and fp32_gate(h, hr) <= 1
+
+
+@pytest.mark.parametrize("B,S,di,N,with_h0", [
+    (1, 37, 100, 4, True),       # ragged S and di, reduced()'s d_state
+    (3, 70, 1000, 4, False),     # zero state, not read
+    (2, 33, 130, 16, True),
+])
+def test_ssm_kernel_ragged_and_small_state(gen, B, S, di, N, with_h0):
+    args = _ssm_inputs(gen, B, S, di, N, with_h0)
+    y, h = ssm_scan(*args)
+    yr, hr = ssm_scan_ref(*args)
+    assert fp32_gate(y, yr) <= 1 and fp32_gate(h, hr) <= 1
+
+
+def test_fp32_gate_rejects_scan_without_carried_state(gen):
+    """The decode step run with h0 read as zeros, as a scan that drops the
+    carried state would, fails the gate."""
+    args = _ssm_inputs(gen, 8, 1, 8192, 16, True)
+    y, _ = ssm_scan(*args[:-1], None)
+    assert fp32_gate(y, ssm_scan_ref(*args)[0]) > 1
+
+
+def test_fp32_gate_rejects_scan_without_last_chunk(gen):
+    """At prefill from a zero state: the kernel run on all but the last 32
+    steps, as a dropped last chunk of the staged time steps would give,
+    leaves an h_final that fails the gate."""
+    args = _ssm_inputs(gen, 8, 512, 8192, 16, False)
+    cut = [t[:, :-32].contiguous() for t in args[:4]]
+    _, h = ssm_scan(*cut, *args[4:])
+    assert fp32_gate(h, ssm_scan_ref(*args)[1]) > 1
+
+
+def test_ssm_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    args = list(_ssm_inputs(gen, 2, 8, 64, 16, True))
+    with pytest.raises(TypeError):
+        ssm_scan(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):       # not contiguous
+        ssm_scan(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                 *args[1:])
+    with pytest.raises(ValueError):       # d_state 12 is not compiled
+        small = _ssm_inputs(gen, 2, 8, 64, 12, True)
+        ssm_scan(*small)
+    with pytest.raises(ValueError):       # one operand on the CPU
+        ssm_scan(*args[:-1], args[-1].cpu())

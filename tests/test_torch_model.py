@@ -205,3 +205,72 @@ def test_init_params_moe_quantized(quant):
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.moe.num_experts, full.moe.top_k, full.moe.expert_ff,
             full.vocab_size) == (48, 2048, 32, 4, 128, 8, 768, 151936)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_params_from_jax_hybrid_bit_exact(mode):
+    """jamba's layers arrive by kind, bit for bit: layer r*U + j is repeat
+    r of unit position j; a Mamba layer's projections (quantized under
+    int8), its conv_w and its fp32 A_log, D and dt_bias (never quantized),
+    the attention layer's projections, and the reference's stacked serving
+    state cut per layer by `pools_from_jax`."""
+    from repro.quant import quantize_tree as jquantize_tree
+    from repro.serving.runner import init_pools as jinit_pools
+    from repro_torch.weights import pools_from_jax
+    cfg = jax_reduced("jamba-v0.1-52b", vocab=1024)
+    tcfg = reduced("jamba-v0.1-52b", vocab=1024)
+    jp = jquantize_tree(jax_init_params(jax.random.PRNGKey(0), cfg), mode)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    U = len(jp["blocks"])
+    for i, (kind, is_moe) in enumerate(zip(tcfg.block_pattern(),
+                                           tcfg.moe_layer_mask())):
+        blk, r, layer = jp["blocks"][i % U], i // U, tp["layers"][i]
+        assert (kind in layer) and ("moe" in layer) == is_moe
+        names = (("in_proj", "x_proj", "dt_proj", "out_proj") if kind ==
+                 "mamba" else ("wq", "wk", "wv", "wo"))
+        for n in names:
+            a, t = blk[kind][n], layer[kind][n]
+            if mode == "int8":
+                a, t = a["q"], t["q"]
+            np.testing.assert_array_equal(
+                t.view(torch.int16 if mode == "bf16" else torch.int8)
+                .numpy(), np.asarray(a[r]).view(
+                    np.int16 if mode == "bf16" else np.int8))
+        if kind == "mamba":
+            for n in ("conv_w", "A_log", "D", "dt_bias"):
+                t = layer["mamba"][n]
+                assert not isinstance(t, dict), n
+                np.testing.assert_array_equal(
+                    t.float().numpy(),
+                    np.asarray(blk["mamba"][n][r], np.float32))
+            assert layer["mamba"]["A_log"].dtype == torch.float32
+    pools = pools_from_jax(jax.tree.map(np.asarray, jinit_pools(
+        cfg, 8, 4, 3)), tcfg)
+    assert [set(p) for p in pools] == [
+        {"k", "v"} if k == "attn" else {"conv", "h"}
+        for k in tcfg.block_pattern()]
+    assert pools[0]["h"].shape == (3, 128, 4)
+    assert pools[0]["conv"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8", "fp8"])
+def test_init_params_hybrid(quant):
+    """jamba drawn layer by layer by kind: Mamba layers with ln1 + mamba,
+    the attention layer with ln1 + attn, each with ln2 + a dense MLP or
+    (every second layer) MoE; the Mamba tensors that `linear` never
+    reads stay as they are. The full config is the reference's."""
+    cfg = reduced("jamba-v0.1-52b", vocab=1024)
+    p = init_params(cfg, device="cpu", quant=quant,
+                    generator=torch.Generator().manual_seed(0))
+    kinds = [("attn" if "attn" in lay else "mamba",
+              "moe" if "moe" in lay else "mlp") for lay in p["layers"]]
+    assert kinds == [(k, "moe" if m else "mlp") for k, m in
+                     zip(cfg.block_pattern(), cfg.moe_layer_mask())]
+    m = p["layers"][0]["mamba"]
+    assert m["A_log"].dtype == torch.float32 and m["A_log"].shape == (128, 4)
+    assert m["conv_w"].dtype == torch.bfloat16
+    assert isinstance(m["in_proj"], dict) == (quant != "bf16")
+    full = get_config("jamba-v0.1-52b")
+    assert full.block_pattern().count("attn") == 4
+    assert sum(full.moe_layer_mask()) == 16
+    assert abs(full.param_count() / 1e9 - 51.57) < 0.01

@@ -109,14 +109,25 @@ class _FixedClock:
 def test_real_executors_emit_the_same_tokens():
     """f32 parameters, prompts drawn by the engine from [0, 1000), inside
     the vocabulary of 1024: identical token streams and timings."""
-    jcfg = jax_reduced("llama31-8b", vocab=1024)
+    _same_tokens("llama31-8b")
+
+
+def test_real_executors_emit_the_same_tokens_hybrid():
+    """As above for the hybrid jamba-v0.1-52b (reduced: 7 Mamba layers, one
+    attention layer, MoE on every second), whose Mamba states carry each
+    slot's padded prompt into its decode."""
+    _same_tokens("jamba-v0.1-52b")
+
+
+def _same_tokens(arch):
+    jcfg = jax_reduced(arch, vocab=1024)
     jp = jax_init_params(jax.random.PRNGKey(3), jcfg, dtype=jnp.float32)
     tp = params_from_jax(jax.tree.map(np.asarray, jp),
-                         reduced("llama31-8b", vocab=1024))
+                         reduced(arch, vocab=1024))
     kw = dict(num_pages=ECFG["num_pages"], page_size=ECFG["page_size"],
               max_batch=ECFG["max_batch"])
     execs = (_FixedClock(jserving.RealExecutor(jcfg, jp, **kw)),
-             _FixedClock(RealExecutor(reduced("llama31-8b", vocab=1024), tp,
+             _FixedClock(RealExecutor(reduced(arch, vocab=1024), tp,
                                       device="cpu", **kw)))
     spec = dict(lam=50.0, n_requests=6, scale=0.02, seed=4)
     timings = []
@@ -140,14 +151,20 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
+        "print(' '.join(k for k in sys.modules "
+        "if k.startswith('repro_torch')))\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(SRC),
                                          "PATH": "/usr/bin:/bin"},
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25      # every module was loaded
+    loaded = set(res.stdout.split())
+    assert len(loaded) >= 25                       # every module was loaded
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.ssm_scan.kernel",
+            "repro_torch.kernels.ssm_scan.ops",
+            "repro_torch.kernels.ssm_scan.ref",
+            "repro_torch.configs.jamba_v0_1_52b"} <= loaded
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu():
@@ -174,7 +191,9 @@ def test_cpu_server_meters_every_request(capsys):
 
 @pytest.mark.parametrize("arch,quant", [("qwen3-30b-a3b", "int8"),
                                         ("qwen3-30b-a3b", "fp8"),
-                                        ("llama31-8b", "int8")])
+                                        ("llama31-8b", "int8"),
+                                        ("jamba-v0.1-52b", "int8"),
+                                        ("jamba-v0.1-52b", "fp8")])
 def test_cpu_server_serves_moe_and_quantized(arch, quant, capsys):
     tserve.main(["--device", "cpu", "--arch", arch, "--quant", quant,
                  "--lam", "5", "--requests", "4"])

@@ -6,6 +6,8 @@ Phases, each of which exits non-zero on failure:
   1. device: the card's name, count, and `nvidia-smi` name and power limit;
   2. build: every kernel of `src/repro_torch/csrc/` with nvcc for sm_90a,
      one process each, in parallel; ptxas's register/shared-memory lines;
+     the flash library's SASS (`cuobjdump -sass`) must hold tensor-core
+     (HGMMA) and TMA-load (UTMALDG) instructions; SYNCS (mbarrier) counted;
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b. The attention
      kernels in bf16 with |kernel - plain| <= 1e-3 + 2**-7 |plain| on every
@@ -20,7 +22,8 @@ Phases, each of which exits non-zero on failure:
      steps). Then the kernel, the plain version and the yardstick PyTorch
      call timed on the device (CUDA graphs of repeated calls, timed with
      CUDA events), each beside its bound; flash also at a served prefill
-     call's kv_len, half the slots at 512 and half at 0;
+     call's kv_len, half the slots at 512 and half at 0, with its TFLOP/s,
+     share of its bound and ratio to SDPA;
   4. small-input checks: narrow models (llama31-8b in bf16 and in int8,
      qwen3-30b-a3b in bf16, 2 layers; jamba-v0.1-52b in bf16 and int8, 8
      layers) through the kernels on the card against the same models
@@ -96,6 +99,24 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+
+
+def sass_counts(lib_path: str) -> dict:
+    """Counts of tensor-core, TMA-load and mbarrier instructions in a
+    library's SASS, from the toolkit's `cuobjdump` beside `nvcc`."""
+    from repro_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    ops = []
+    for line in sass.splitlines():      # /*0070*/  [@P0] OPCODE.mods ... ;
+        words = line.split("*/", 1)[-1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            ops.append(words[0])
+    return {k: sum(o.startswith(k) for o in ops)
+            for k in ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")}
 
 
 def device_ms(fn, arg_sets, per_graph=20, replays=5) -> float:
@@ -207,6 +228,7 @@ def check_flash(gen, arch):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
+    from repro_torch.kernels import bf16_gate
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     dev, hkv = "cuda", HKV[arch]
     pairs = []
@@ -257,21 +279,33 @@ def check_flash(gen, arch):
                        device=dev)
     mix_bytes = 2 * (n_pre * L * HQ * D + B * L * HQ * D + n_pre * L * hkv * D
                      + B * L * hkv * D) + 4 * B
-    mix_b_ms, mix_b_by = bound(mix_bytes, 4 * n_pre * HQ * L * L * D / 2)
+    mix_flops = 4 * n_pre * HQ * L * L * D / 2
+    mix_b_ms, mix_b_by = bound(mix_bytes, mix_flops)
+    ms = device_ms(lambda q, k, v: flash_attention_kernel(
+        q, k, v, causal=True), args)
+    lib_ms = device_ms(sdpa, lib_args)
+    # the yardstick held to the kernel's gate, for the record only: SDPA
+    # rounds P to bf16 before P V
+    lib_gate = bf16_gate(sdpa(*lib_args[0]).transpose(1, 2), pairs[0][1])
+    mix_ms = device_ms(lambda q, k, v: flash_attention_kernel(
+        q, k, v, causal=True, kv_len=mix), args)
     return {
         "max_abs_err": err, "gate": gate, "fault": fault,
         "fault_desc": "the last 64-key tile of Lp 512 dropped",
-        "ms": device_ms(lambda q, k, v: flash_attention_kernel(
-            q, k, v, causal=True), args),
+        "ms": ms,
         "plain_ms": device_ms(lambda q, k, v: flash_attention_ref(
             q, k, v, causal=True), args, per_graph=4),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": device_ms(sdpa, lib_args),
+        "library_ms": lib_ms,
+        # the algorithm's FLOPs over the kernel's time (the kernel also
+        # runs a second, low-order bf16 term of P through the tensor cores)
+        "tflops": flops / ms * 1e-9, "share_of_bound": b_ms / ms,
+        "x_library": ms / lib_ms, "library_gate": lib_gate,
         "served_mix": {
-            "kv_len": mix.tolist(),
-            "ms": device_ms(lambda q, k, v: flash_attention_kernel(
-                q, k, v, causal=True, kv_len=mix), args),
-            "bound_ms": mix_b_ms, "bound_by": mix_b_by},
+            "kv_len": mix.tolist(), "ms": mix_ms,
+            "bound_ms": mix_b_ms, "bound_by": mix_b_by,
+            "share_of_bound": mix_b_ms / mix_ms,
+            "tflops": mix_flops / mix_ms * 1e-9},
         "shape": f"{arch}: B={B} Sq=Sk={L} Hq={HQ} Hkv={hkv} D={D} causal "
                  f"(checked also at Sq=Sk=576 and with kv_len "
                  f"{kv_len.tolist()})",
@@ -640,8 +674,13 @@ def main():
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("Used", "spill", "Compiling",
+                                       "warning")):
                 print(f"  {name}: {line.strip()}")
+    sass = sass_counts(str(build.library_path("flash_attention")))
+    print(f"build: flash_attention SASS: {sass}", flush=True)
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        fail(f"flash_attention's SASS holds no wgmma or no TMA load: {sass}")
 
     # 3. kernels against their plain versions, then timed
     phase("kernels")
@@ -679,9 +718,16 @@ def main():
                   f"{v.get('library_note', '')}", flush=True)
             if "served_mix" in v:
                 m = v["served_mix"]
+                print(f"kernel {name} [{v['shape']}]: {v['tflops']:.1f} "
+                      f"TFLOP/s, {v['share_of_bound']:.3f} of its bound, "
+                      f"{v['x_library']:.3f} x SDPA's time (SDPA's own "
+                      f"gate against the plain version: "
+                      f"{v['library_gate']:.3g})", flush=True)
                 print(f"kernel {name} [{v['shape']}]: at the served mix "
                       f"kv_len={m['kv_len']}: ms={m['ms']:.4f} bound_ms="
-                      f"{m['bound_ms']:.4f} ({m['bound_by']})", flush=True)
+                      f"{m['bound_ms']:.4f} ({m['bound_by']}), "
+                      f"{m['share_of_bound']:.3f} of its bound, "
+                      f"{m['tflops']:.1f} TFLOP/s", flush=True)
     torch.cuda.empty_cache()
 
     # 4. small inputs: kernels on the card against plain versions on the CPU
@@ -722,9 +768,16 @@ def main():
                "launches": sum(by_path.values()),
                "max_abs_err": max(v["max_abs_err"] for v in vs)}
         row.update({k: vs[0][k] for k in keys[1:]})   # the first variant
+        if "served_mix" in vs[0]:
+            row.update({k: vs[0][k] for k in ("tflops", "share_of_bound",
+                                              "x_library")})
+            row["served_mix_share_of_bound"] = \
+                vs[0]["served_mix"]["share_of_bound"]
         row["launches_by_path"] = by_path
         row["variants"] = [{k: v[k] for k in ("shape",) + keys
-                            + ("bound_term", "bound_terms_ms", "served_mix")
+                            + ("bound_term", "bound_terms_ms", "tflops",
+                               "share_of_bound", "x_library", "library_gate",
+                               "served_mix")
                             if k in v}
                            for v in vs]
         rows.append(row)

@@ -6,259 +6,434 @@
 // or full, fp32 scores scaled by 1/sqrt(D), fp32 online softmax and fp32
 // accumulator. Any Sq and Sk: the kernel masks the ragged edge itself, so
 // the Pallas kernel's divisibility assert (prompts are padded to multiples
-// of 64, not 128) does not apply. An optional kv_len (B,) masks keys at or
-// past kv_len[b], as the reference model's prefill attention does for
-// padded prompts; a sequence with kv_len 0 gets there the softmax of
-// all-equal masked scores, the mean of V over all Sk keys, and here too,
-// from one pass over V with no scores.
+// of 64, not 128) does not apply. An optional kv_len (B,), clipped to Sk,
+// masks keys at or past kv_len[b], as the reference model's prefill
+// attention does for padded prompts; a sequence with kv_len 0 gets there
+// the softmax of all-equal masked scores, the mean of V over all Sk keys,
+// and here too, from one pass over V with no scores. D is 128 only.
 //
 // What bounds it on this card: it does 4*Sq*Sk*D/2 FLOPs per (sequence,
-// head) against 2*(2*Sq + 2*Sk/G)*D bytes (q and out per query head, K
-// and V per KV head), so FLOPs per byte grow with the sequence. At the
-// served prefill shape (Sq = Sk = 512, D = 128, G = 4) that is about 100
-// FLOP/byte, under the ~295 where the bf16 tensor cores would bound:
-// device-memory bytes set the least time there, and operations do from
-// about 1.5k tokens up. This version, on fp32 FMAs (67 TFLOP/s peak), is
-// held by its own arithmetic long before either.
+// head) when causal against 2*(2*Sq + 2*Sk/G)*D bytes (q and out per
+// query head, K and V per KV head), so FLOPs per byte grow with the
+// sequence. At the served prefill shape (Sq = Sk = 512, D = 128, G = 4)
+// that is about 100 FLOP/byte, under the ~295 where the bf16 tensor cores
+// would bound: device-memory bytes set the least time there, and
+// operations do from about 1.5k tokens up.
 //
-// What the design does about it: a 64-row Q tile stays in shared memory
-// (fp32, pre-scaled) while 64 x D tiles of K and V stream through it, so
-// Q is read once and each K/V tile once per Q tile; the 64 x 64 score tile
-// and the 64 x D accumulator never leave the SM. Tiles entirely above the
-// causal diagonal are skipped, which halves the work. Each of 256 threads
-// computes a 4 x 4 block of scores and a 4 x D/16 block of the output with
-// plain fp32 FMAs, with rows and columns strided by 16 so that the
-// shared-memory reads are conflict-free or broadcast. This first version
-// leaves the tensor cores idle: mma.sync or wgmma on bf16 tiles, fed by
-// TMA, is the next step and the reason it stays far from its bound.
+// What the design does about it: the products run on the tensor cores
+// (bf16 wgmma, fp32 accumulators) and the tiles arrive by TMA, so no
+// thread spends instructions on addresses or loads. A block owns 128 query
+// rows of one head of one sequence and has three warpgroups. Warpgroup 0
+// is the producer: one thread loads the Q tile once, then K and V tiles of
+// 64 keys into a ring of two stages in shared memory, each stage with a
+// "full" mbarrier (the copies' bytes landed) and an "empty" one (both
+// consumers are done with it); it gives up registers (setmaxnreg) to the
+// consumers. Warpgroups 1 and 2 each own 64 query rows. Per key tile:
+// S = Q K^T as 8 wgmma m64n64k16 with both operands in shared memory
+// (K-major: D is contiguous in the (B, S, H, D) layout); masks only on
+// tiles that cross the causal diagonal or the kv_len edge (TMA fills rows
+// past Sk with zeros, which the kv_len mask covers); the online softmax in
+// registers (each row's max over the four lanes of a quad, exp2 with the
+// scale folded in, O rescaled only where the max moved, row sums kept per
+// thread and summed once at the end); then O += P V as wgmma m64n128k16
+// with P taken from the registers as the A operand (the accumulator layout
+// of S is the A-fragment layout, so P never touches shared memory) and V
+// from shared memory N-major. P goes in as three bf16 terms, each the
+// rounded remainder of the ones before, which carry its 24 bits: one bf16
+// P (what the reference model's jnp attention does) moves rows that
+// attend to a few keys by up to 4 steps of the one-bf16-step gate against
+// the plain version's fp32 P; two terms (p to 2^-18) pass the gate but
+// flip bf16 roundings of the output often enough that a 2-layer int8
+// llama31-8b's K/V end 0.057 from its CPU run (int8's per-tensor
+// activation quantization turns one flipped bf16 step into one int8
+// step); three leave it at 0, as the fp32 plain version does. Three terms
+// of a 128-key tile held in registers with S and O made ptxas spill, so
+// the K/V tiles are 64 keys. Tiles past min(kv_len, the diagonal) are
+// never loaded. The epilogue divides by the row sums, rounds to bf16 into
+// the (finished) Q tile and stores it with TMA, which clips rows past Sq.
+// Blocks run the longest causal Q tiles first, and the G query heads of a
+// KV head are neighbours so that their K and V tiles come from L2. Not
+// done yet: overlapping one tile's softmax with the next tile's products
+// (ping-pong between the consumers), a persistent grid that hides each
+// block's prologue and epilogue, TMA multicast across a cluster.
 #include <cmath>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 64;            // key/value rows per tile
-constexpr int THREADS = 256;      // 16 x 16 threads
-constexpr float NEG_INF = -1e30f;
+constexpr int D = 128;                 // head_dim
+constexpr int BQ = 128;                // query rows per block, 64 a consumer
+constexpr int BK = 64;                 // keys per K/V tile
+constexpr int STAGES = 2;              // K/V tiles in flight
+constexpr int THREADS = 384;           // producer + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+// Tiles are stored as two 64-column halves (128-byte rows, the swizzle's
+// width), each half rows x 128 bytes
+constexpr int Q_HALF = BQ * 128, Q_TILE = 2 * Q_HALF;      // 32 KB
+constexpr int KV_HALF = BK * 128, KV_TILE = 2 * KV_HALF;   // 16 KB
+constexpr int OFF_K = Q_TILE;
+constexpr int OFF_V = OFF_K + STAGES * KV_TILE;
+constexpr int OFF_BAR = OFF_V + STAGES * KV_TILE;
+constexpr size_t SMEM = OFF_BAR + 64 + 1024;   // + barriers, + alignment
 
-template <int D>
-constexpr size_t smem_floats() {
-  return (size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-         (size_t)BQ * (BK + 1);
+struct Barriers {
+  uint64_t q, full[STAGES], empty[STAGES];
+};
+
+struct Shape {
+  int B, Sq, Sk, Hq, Hkv, causal, n_qt;
+};
+
+// A block's work: query head h of sequence b, query rows q0 to q0 + BQ -
+// 1, KV head hk, kvl valid keys in n_kt key tiles (when causal, those up
+// to the block's last row below Sq). The last Q tiles (the most key
+// tiles) run first, and a KV head's G query heads side by side.
+struct Place {
+  int h, b, hk, q0, kvl, n_kt;
+};
+
+// Read anew by each role after its register reallocation, from a
+// volatile read of %ctaid.x that the compiler can neither hoist nor merge:
+// a value live across setmaxnreg is spilled to local memory by ptxas.
+__device__ __forceinline__ Place locate(const Shape& sh, const int* kv_len) {
+  int id;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(id));
+  Place p;
+  p.h = id % sh.Hq;
+  p.b = (id / sh.Hq) % sh.B;
+  p.hk = p.h / (sh.Hq / sh.Hkv);
+  p.q0 = (sh.n_qt - 1 - id / (sh.Hq * sh.B)) * BQ;
+  p.kvl = kv_len == nullptr ? sh.Sk : min(sh.Sk, kv_len[p.b]);
+  p.n_kt = (p.kvl + BK - 1) / BK;
+  if (sh.causal) p.n_kt = min(p.n_kt, (min(p.q0 + BQ, sh.Sq) - 1) / BK + 1);
+  return p;
 }
 
-__device__ inline float half_warp_max(float v) {
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// A sequence with no valid key: every row of the block is the mean of V
+// over all Sk keys of KV head hk, summed in fp32 with 16-byte loads (24
+// rows side by side, 16 chunks of 8 values each) and written with 16-byte
+// stores.
+__device__ void mean_of_v(uint8_t* smem, const __nv_bfloat16* v,
+                          __nv_bfloat16* out, int b, int h, int hk, int q0,
+                          const Shape& sh) {
+  constexpr int CH = D / 8, R = THREADS / CH;
+  const int Sq = sh.Sq, Sk = sh.Sk, Hq = sh.Hq, Hkv = sh.Hkv;
+  float* part = reinterpret_cast<float*>(smem);          // [R][D]
+  __nv_bfloat16* mean = reinterpret_cast<__nv_bfloat16*>(part + R * D);
+  const int c = threadIdx.x % CH, r0 = threadIdx.x / CH;
+  float acc[8] = {};
+#pragma unroll 8
+  for (int row = r0; row < Sk; row += R) {      // 8 loads in flight
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        v + (((size_t)b * Sk + row) * Hkv + hk) * D + c * 8);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ inline float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Loads rows [row0, row0 + 64) of a (B, S, H, D) tensor at (b, h) into a
-// padded fp32 tile, multiplied by `mul`; rows at or past S are zero.
-template <int D, int LD>
-__device__ inline void load_tile(float* tile, const __nv_bfloat16* x, int b,
-                                 int h, int row0, int S, int H, float mul) {
-  for (int idx = threadIdx.x; idx < 64 * D / 2; idx += THREADS) {
-    const int r = idx / (D / 2), d = (idx % (D / 2)) * 2;
-    const int row = row0 + r;
-    float2 f = make_float2(0.f, 0.f);
-    if (row < S) {
-      f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          x + (((size_t)b * S + row) * H + h) * D + d));
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(x2[j]);
+      acc[2 * j] += f.x;
+      acc[2 * j + 1] += f.y;
     }
-    tile[r * LD + d] = f.x * mul;
-    tile[r * LD + d + 1] = f.y * mul;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) part[r0 * D + c * 8 + j] = acc[j];
+  __syncthreads();
+  if (threadIdx.x < D) {
+    float s = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < R; ++r) s += part[r * D + threadIdx.x];
+    mean[threadIdx.x] = __float2bfloat16(s / (float)Sk);
+  }
+  __syncthreads();
+  const uint4* m4 = reinterpret_cast<const uint4*>(mean);
+  const int rows = min(BQ, Sq - q0);
+  for (int i = threadIdx.x; i < rows * CH; i += THREADS)
+    *reinterpret_cast<uint4*>(
+        out + (((size_t)b * Sq + q0 + i / CH) * Hq + h) * D + (i % CH) * 8) =
+        m4[i % CH];
+}
+
+// The two consumer warpgroups: 64 query rows each.
+__device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
+                                        const CUtensorMap* map_o,
+                                        const Place& p, int causal) {
+  const int b = p.b, h = p.h, q0 = p.q0, kvl = p.kvl, n_kt = p.n_kt;
+  const int cw = threadIdx.x / 128 - 1;       // 0 or 1
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int qd = lane % 4;
+  const int row_lo = q0 + 64 * cw;            // this warpgroup's first row
+  const int row0 = row_lo + 16 * (t / 32) + lane / 4, row1 = row0 + 8;
+  // when causal, tiles past this warpgroup's diagonal are all masked: it
+  // only releases them. Every tile it runs keeps key k0 for every row (k0 <
+  // kvl, and k0 <= row_lo when causal), so each row's max is finite.
+  const int n_run = causal ? min(n_kt, row_lo / BK + 1) : n_kt;
+  // exp(x / sqrt(D)) = exp2(x * sl)
+  const float sl = 1.4426950408889634f / sqrtf((float)D);
+  uint8_t* qs = smem + cw * (Q_HALF / 2);     // this warpgroup's 64 rows
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  hopper::mbar_wait(&bars->q, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % STAGES;
+    const uint8_t* ks = smem + OFF_K + s * KV_TILE;
+    const uint8_t* vs = smem + OFF_V + s * KV_TILE;
+    hopper::mbar_wait(&bars->full[s], (kt / STAGES) & 1);
+    if (kt >= n_run) {
+      hopper::mbar_arrive(&bars->empty[s]);
+      continue;
+    }
+
+    // S = Q K^T (64 x 64): 8 k-steps of 16 over D, 4 in each 64-wide half
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    const uint64_t dq = hopper::desc_sw128(qs, 16, 1024);
+    const uint64_t dk = hopper::desc_sw128(ks, 16, 1024);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_m64n64k16_ss<0>(
+          sc, hopper::desc_advance(dq, (kk / 4) * Q_HALF + (kk % 4) * 32),
+          hopper::desc_advance(dk, (kk / 4) * KV_HALF + (kk % 4) * 32), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(sc);
+
+    // masks only where the tile crosses the kv_len edge or the diagonal
+    const int k0 = kt * BK;
+    if (k0 + BK > kvl || (causal && k0 + BK - 1 > row_lo)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * qd + (i % 2);
+        const int row = (i & 2) ? row1 : row0;
+        if (col >= kvl || (causal && col > row)) sc[i] = -INFINITY;
+      }
+    }
+
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    if (mx0 > m0) {                 // rescale O and the sum where it moved
+      const float a = ex2((m0 - mx0) * sl);
+      l0 *= a;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        o[i] *= a;
+        o[i + 1] *= a;
+      }
+      m0 = mx0;
+    }
+    if (mx1 > m1) {
+      const float a = ex2((m1 - mx1) * sl);
+      l1 *= a;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        o[i + 2] *= a;
+        o[i + 3] *= a;
+      }
+      m1 = mx1;
+    }
+
+    // P = exp2(s sl - m sl) in fp32, then its three bf16 terms, each the
+    // rounded remainder of the ones before (the subtractions are exact)
+    const float ms0 = m0 * sl, ms1 = m1 * sl;
+    uint32_t pt[3][16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float ms = (i & 2) ? ms1 : ms0;
+      float p0 = ex2(fmaf(sc[i], sl, -ms));
+      float p1 = ex2(fmaf(sc[i + 1], sl, -ms));
+      if (i & 2) l1 += p0 + p1; else l0 += p0 + p1;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const __nv_bfloat162 tb = __floats2bfloat162_rn(p0, p1);
+        const float2 tf = __bfloat1622float2(tb);
+        pt[n][i / 2] = *reinterpret_cast<const uint32_t*>(&tb);
+        p0 -= tf.x;
+        p1 -= tf.y;
+      }
+    }
+
+    // O += P V: 4 k-steps of 16 keys, each running the three terms against
+    // one descriptor of V, which is N-major (D contiguous): its 64-wide
+    // halves KV_HALF bytes apart, 8-key groups 1024 bytes apart
+    hopper::fence_operands(o);
+    const uint64_t dv = hopper::desc_sw128(vs, KV_HALF, 1024);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t d = hopper::desc_advance(dv, kk * 2048);
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+        hopper::wgmma_m64n128k16_rs<1>(o, pt[n][4 * kk], pt[n][4 * kk + 1],
+                                       pt[n][4 * kk + 2], pt[n][4 * kk + 3],
+                                       d, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(o);
+#pragma unroll
+    for (int n = 0; n < 3; ++n) hopper::fence_operands(pt[n]);
+    hopper::mbar_arrive(&bars->empty[s]);
+  }
+
+  // O / l in bf16 into this warpgroup's (finished) rows of the Q tile, in
+  // the same swizzled layout, then one TMA store per 64-wide half
+  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+  const int r = 16 * (t / 32) + lane / 4;     // row0 - row_lo; r % 8 = lane/4
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int j = i / 4, rr = r + 8 * ((i / 2) % 2);
+    const float inv = (i & 2) ? inv1 : inv0;
+    uint8_t* dst = qs + (j / 8) * Q_HALF + rr * 128 +
+                   (((j % 8) ^ (rr % 8)) * 16) + 4 * qd;
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o[i] * inv, o[i + 1] * inv);
+  }
+  hopper::fence_async_shared();
+  hopper::named_sync(1 + cw, 128);
+  if (t == 0) {
+    hopper::tma_store_3d(map_o, qs, h * D, row_lo, b);
+    hopper::tma_store_3d(map_o, qs + Q_HALF, h * D + 64, row_lo, b);
+    hopper::tma_store_wait();
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_o,
                        const __nv_bfloat16* __restrict__ v,
                        const int* __restrict__ kv_len,
-                       __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                       int Hq, int Hkv, int causal, float scale) {
-  constexpr int DT = D / 16;      // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                           // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);              // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);              // [BK][D]
-  float* Ps = Vs + BK * D;                    // [BQ][BK + 1]
+                       __nv_bfloat16* __restrict__ out, const Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - hopper::smem_u32(smem_raw) % 1024) % 1024);
+  Barriers* bars = reinterpret_cast<Barriers*>(smem + OFF_BAR);
 
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = qb * BQ;
-
-  // keys below kvl are valid; with none valid (kv_len 0) every key gets
-  // the same weight, whatever the causal mask, so each row is the mean of
-  // V over all Sk keys: one pass over V, with no scores
-  const int kvl = kv_len == nullptr ? Sk : min(Sk, kv_len[b]);
-  if (kvl <= 0) {
-    constexpr int R = THREADS / D;            // rows summed side by side
-    static_assert(THREADS % D == 0, "a whole number of rows per pass");
-    const int d = threadIdx.x % D, r0 = threadIdx.x / D;
-    float sum = 0.f;
-    for (int row = r0; row < Sk; row += R)
-      sum += __bfloat162float(v[(((size_t)b * Sk + row) * Hkv + hk) * D + d]);
-    smem[r0 * D + d] = sum;
-    __syncthreads();
-    if (threadIdx.x < D) {
-      float t = 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) t += smem[r * D + threadIdx.x];
-      smem[R * D + threadIdx.x] = t / (float)Sk;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
-      const int row = q0 + idx / D;
-      if (row < Sq)
-        out[(((size_t)b * Sq + row) * Hq + h) * D + idx % D] =
-            __float2bfloat16(smem[R * D + idx % D]);
-    }
-    return;
-  }
-
-  load_tile<D, D + 1>(Qs, q, b, h, q0, Sq, Hq, scale);
-
-  float m[4], l[4], acc[4][DT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) acc[i][j] = 0.f;
-  }
-
-  int n_kt = (kvl + BK - 1) / BK;
-  if (causal) n_kt = min(n_kt, min(q0 + BQ - 1, Sq - 1) / BK + 1);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();              // previous tile's Ks/Vs/Ps are consumed
-    load_tile<D, D + 1>(Ks, k, b, hk, k0, Sk, Hkv, 1.f);
-    load_tile<D, D>(Vs, v, b, hk, k0, Sk, Hkv, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        ok[j] = col < kvl && (!causal || col <= row);
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = __expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? __expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (BK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const float vv = Vs[c * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
+  {
+    const Place p = locate(sh, kv_len);
+    if (p.kvl <= 0) {
+      mean_of_v(smem, v, out, p.b, p.h, p.hk, p.q0, sh);
+      return;
     }
   }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bars->q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&bars->full[s], 1);
+      hopper::mbar_init(&bars->empty[s], CONSUMERS);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* o = out + (((size_t)b * Sq + row) * Hq + h) * D;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      o[tx + 16 * j] = __float2bfloat16(acc[i][j] * inv);
+  if (threadIdx.x < 128) {          // producer
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      const Place p = locate(sh, kv_len);
+      const int b = p.b, kc = p.hk * D;
+      hopper::mbar_arrive_expect_tx(&bars->q, Q_TILE);
+      hopper::tma_load_3d(smem, &map_q, &bars->q, p.h * D, p.q0, b);
+      hopper::tma_load_3d(smem + Q_HALF, &map_q, &bars->q, p.h * D + 64,
+                          p.q0, b);
+      for (int kt = 0; kt < p.n_kt; ++kt) {
+        const int s = kt % STAGES, k0 = kt * BK;
+        if (kt >= STAGES)
+          hopper::mbar_wait(&bars->empty[s], (kt / STAGES - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&bars->full[s], 2 * KV_TILE);
+        uint8_t* ks = smem + OFF_K + s * KV_TILE;
+        uint8_t* vs = smem + OFF_V + s * KV_TILE;
+        hopper::tma_load_3d(ks, &map_k, &bars->full[s], kc, k0, b);
+        hopper::tma_load_3d(ks + KV_HALF, &map_k, &bars->full[s], kc + 64, k0,
+                            b);
+        hopper::tma_load_3d(vs, &map_v, &bars->full[s], kc, k0, b);
+        hopper::tma_load_3d(vs + KV_HALF, &map_v, &bars->full[s], kc + 64, k0,
+                            b);
+      }
+    }
+  } else {                          // consumers
+    hopper::regs_inc<232>();
+    consume(smem, bars, &map_o, locate(sh, kv_len), sh.causal);
   }
 }
 
-template <int D>
-cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, const int* kv_len,
-                   __nv_bfloat16* o, int B, int Sq, int Sk, int Hq, int Hkv,
-                   int causal, cudaStream_t st) {
-  constexpr size_t bytes = smem_floats<D>() * sizeof(float);
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* kv_len, void* o, int B, int Sq, int Sk, int Hq,
+                   int Hkv, int causal, cudaStream_t st) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_attention_kernel<D><<<grid, THREADS, bytes, st>>>(
-      q, k, v, kv_len, o, Sq, Sk, Hq, Hkv, causal, 1.0f / sqrtf((float)D));
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t e;
+  if ((e = hopper::tiled_map_bf16(&mq, q, (uint64_t)Hq * D, Sq, B, 64, BQ)) ||
+      (e = hopper::tiled_map_bf16(&mk, k, (uint64_t)Hkv * D, Sk, B, 64, BK)) ||
+      (e = hopper::tiled_map_bf16(&mv, v, (uint64_t)Hkv * D, Sk, B, 64, BK)) ||
+      (e = hopper::tiled_map_bf16(&mo, o, (uint64_t)Hq * D, Sq, B, 64,
+                                  BQ / 2)))
+    return e;
+  const Shape sh{B, Sq, Sk, Hq, Hkv, causal, (Sq + BQ - 1) / BQ};
+  flash_attention_kernel<<<sh.n_qt * Hq * B, THREADS, SMEM, st>>>(
+      mq, mk, mv, mo, static_cast<const __nv_bfloat16*>(v), kv_len,
+      static_cast<__nv_bfloat16*>(o), sh);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Instantiated for the head_dim of the registered configs (128). A config
-// that needs another adds its instantiation here and in the wrapper's
-// list. kv_len may be null: every key is then valid.
+// head_dim 128 only (the registered configs'). kv_len may be null: every
+// key is then valid. q, k, v and out must be 16-byte aligned (TMA).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* kv_len,
                                     void* out, int B, int Sq, int Sk, int Hq,
-                                    int Hkv, int D, int causal,
+                                    int Hkv, int D_, int causal,
                                     void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || Sk <= 0 || D != 128)
-    return cudaErrorInvalidValue;
-  return launch<128>(static_cast<const __nv_bfloat16*>(q),
-                     static_cast<const __nv_bfloat16*>(k),
-                     static_cast<const __nv_bfloat16*>(v),
-                     static_cast<const int*>(kv_len),
-                     static_cast<__nv_bfloat16*>(out), B, Sq, Sk, Hq, Hkv,
-                     causal, static_cast<cudaStream_t>(stream));
+  if (Hkv <= 0 || Hq % Hkv || Sk <= 0 || D_ != D) return cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  return launch(q, k, v, static_cast<const int*>(kv_len), out, B, Sq, Sk, Hq,
+                Hkv, causal, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kernel_error_string(int err) {

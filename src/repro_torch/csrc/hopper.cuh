@@ -1,0 +1,312 @@
+// Hopper (sm_90a) building blocks shared by the hand-written kernels: TMA
+// tensor maps and copies, mbarriers, wgmma shared-memory descriptors and
+// bf16 products, named barriers and register reallocation between
+// warpgroups. Nothing here knows what a kernel computes.
+//
+// The tensor maps need the driver's cuTensorMapEncodeTiled. The libraries
+// link only the runtime, so it is fetched through the runtime's driver
+// entry point: cuda.h is included for its types and enums alone.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+namespace hopper {
+
+// ---- host: tensor maps ---------------------------------------------------
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver, or null where it is missing.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a row-major (outer, rows, inner) bf16 array at `base`
+// (16-byte aligned, inner a multiple of 8), read and written in boxes of
+// box_rows x box_inner elements (one outer index) under the 128-byte
+// swizzle that wgmma's B128 layout reads (box_inner at most 64). Rows past
+// `rows` read as zeros and are never written. Built on the host for every
+// launch and passed by value (a __grid_constant__ parameter), so a CUDA
+// graph replays it with the addresses it was captured with.
+inline cudaError_t tiled_map_bf16(CUtensorMap* map, const void* base,
+                                  uint64_t inner, uint64_t rows,
+                                  uint64_t outer, uint32_t box_inner,
+                                  uint32_t box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {inner, rows, outer};
+  const cuuint64_t strides[2] = {inner * 2, inner * rows * 2};
+  const cuuint32_t box[3] = {box_inner, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- device: shared memory, mbarriers, TMA --------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Called by one thread; then fence_mbar_init() and a block-wide barrier
+// before any other thread uses the barrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also announces `bytes` of copies that will complete on
+// the barrier.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Waits for the completion of the barrier's phase of parity `parity` (the
+// n-th completion, counting from 0, has parity n & 1). Bounded: after
+// 2**34 clocks (about 9 s at 1.98 GHz) it traps, so a kernel whose phases
+// are wrong fails its launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// Box (c0, c1, c2) of `map` (coordinates in elements, innermost first)
+// into shared memory at `dst` (1024-byte aligned under the 128-byte
+// swizzle); completes its bytes on `bar`. Issued by one thread.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy (TMA stores, wgmma): each writing thread, before the barrier that
+// hands the data over.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Shared memory at `src` to box (c0, c1, c2) of `map`; rows past the
+// map's edge are not written. Issued by one thread, then tma_store_wait().
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Commits the issued stores and waits until they have read their shared
+// memory (which may then be reused, or the block exit).
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---- device: registers between warpgroups ---------------------------------
+
+// Every warp of the warpgroup executes it, in a branch that the other
+// warpgroups' branches never rejoin (otherwise ptxas ignores it).
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(N));
+}
+
+// ---- device: wgmma -------------------------------------------------------
+
+// The descriptor of a matrix operand in shared memory in the 128-byte
+// swizzled layout that TMA writes under CU_TENSOR_MAP_SWIZZLE_128B: rows of
+// 128 bytes, 8-row atoms of 1024 bytes, the tile 1024-byte aligned. Offsets
+// in bytes. K-major operand (K contiguous): `sbo` is the stride between
+// 8-row groups (1024 for packed rows), `lbo` is not read; a k-step of 16
+// bf16 inside a 128-byte row is 32 bytes further. MN-major operand (M or N
+// contiguous): `lbo` is the stride between 64-element blocks of M or N,
+// `sbo` between 8-row groups of K. Moved along K with desc_advance.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return ((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The descriptor `bytes` further on (a multiple of 16, within the 256 KB
+// of shared memory, so the start-address field does not overflow).
+__device__ __forceinline__ uint64_t desc_advance(uint64_t d, uint32_t bytes) {
+  return d + (bytes >> 4);
+}
+
+// Before a warpgroup's first wgmma, and whenever its accumulator or A
+// registers were written by other instructions since the last one.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Waits until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads and writes of an accumulator
+// register across the asynchronous wgmma that owns it: fenced after the
+// wait, before its next use.
+__device__ __forceinline__ void fence_operand(float& x) {
+  asm volatile("" : "+f"(x) :: "memory");
+}
+
+// The same for an A operand in registers, which the wgmma reads until it
+// has completed: fenced after the wait, it stays live until then.
+__device__ __forceinline__ void fence_operand(uint32_t& x) {
+  asm volatile("" : "+r"(x) :: "memory");
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void fence_operands(T (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(x[i]);
+}
+
+#define HOPPER_D64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define HOPPER_D64_OPERANDS(d)                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
+  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),         \
+  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),         \
+  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define HOPPER_D32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define HOPPER_D32_OPERANDS(d)                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+  "+f"(d[31])
+
+// The accumulator layout of wgmma m64nNk16 with fp32 D: thread t of the
+// warpgroup holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, and
+// d[4 j + e] is row r + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+
+// D (64 x 64, fp32) = A (64 x 16) * B (16 x 64) + (accumulate ? D : 0),
+// issued by one warpgroup; A and B bf16 in shared memory (descriptors), A
+// K-major, B K-major (TRANS_B 0) or N-major (TRANS_B 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, %35;\n}"
+      : HOPPER_D32_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 128, fp32) = A (64 x 16) * B (16 x 128) + (accumulate ? D : 0),
+// A bf16 in registers, B bf16 in shared memory, K-major (TRANS_B 0) or
+// N-major (1). A is four 32-bit registers a thread, each two bf16 (the
+// lower column in the low half), in the accumulator's layout for a 64 x 16
+// slice: a0 = (r, 2 (t % 4)), a1 = (r + 8, 2 (t % 4)), a2 = (r, 8 + 2 (t %
+// 4)), a3 = (r + 8, 8 + 2 (t % 4)), so an accumulator converts to an A
+// operand in place. They must not change until the product has completed
+// (wgmma_wait).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3,
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}"
+      : HOPPER_D64_OPERANDS(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+}  // namespace hopper

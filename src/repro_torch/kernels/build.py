@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles with its own `nvcc` process for `sm_90a`
 into `build/kernels/lib<name>-<hash>.so` at the repository root, where
-`<hash>` covers the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. `build_all` starts every compile at once
+`<hash>` covers the source, every file of `csrc/` that it includes
+(`#include "..."`, followed recursively) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. `build_all` starts every compile at once
 and waits for all of them. The libraries expose `extern "C"` entry
 points taking raw pointers and a stream, loaded with `ctypes`.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,9 +39,25 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: Dict[Path, None]) -> Dict[Path, None]:
+    """`path` and the files of `csrc/` it includes, recursively, in the
+    order first met."""
+    seen[path] = None
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = (path.parent / inc.decode()).resolve()
+        if dep.is_file() and dep.is_relative_to(CSRC.resolve()) and \
+                dep not in seen:
+            _sources(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes())
+    h = hashlib.sha1()
+    for path in _sources((CSRC / f"{name}.cu").resolve(), {}):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

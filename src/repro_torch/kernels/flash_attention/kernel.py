@@ -3,7 +3,9 @@
 The kernel is `csrc/flash_attention.cu` (it replaces the Pallas
 `repro.kernels.flash_attention.kernel.flash_attention_kernel`). It takes
 the `(B, S, H, D)` layout of the model directly, so no transposes
-surround it. This wrapper checks its inputs, allocates the output,
+surround it. Its tiles arrive by TMA, which needs 16-byte aligned base
+addresses: the wrapper raises on a tensor that is not, and never copies
+it to fix that. This wrapper checks its inputs, allocates the output,
 launches on PyTorch's current stream and counts its launches in
 `flash_attention_kernel.launches`.
 """
@@ -31,7 +33,8 @@ def _lib():
 def flash_attention_kernel(q, k, v, *, causal: bool = True,
                            kv_len=None) -> torch.Tensor:
     """q: (B, Sq, Hq, D) bf16; k, v: (B, Sk, Hkv, D) bf16; kv_len: None or
-    (B,) int32 valid key counts; contiguous on one card. Any Sq and Sk;
+    (B,) int32 valid key counts; contiguous on one card, q, k and v
+    16-byte aligned. Any Sq and Sk;
     the causal mask is top-left (`col <= row`). Returns (B, Sq, Hq, D)
     bf16."""
     B, Sq, Hq, D = q.shape
@@ -42,6 +45,9 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
                          "CUDA device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention_kernel: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors[:3]):
+        raise ValueError("flash_attention_kernel: q, k and v must be 16-byte "
+                         "aligned (TMA)")
     if any(t.dtype != torch.bfloat16 for t in tensors[:3]):
         raise TypeError("flash_attention_kernel: inputs must be bf16")
     if kv_len is not None and kv_len.dtype != torch.int32:

@@ -112,6 +112,11 @@ def test_gate_rejects_paged_kernel_without_last_page(gen, Hkv):
     (1, 100, 37, 4, 2, 128, False),    # ragged edges
     (1, 70, 130, 4, 4, 128, True),     # Sq != Sk, top-left mask
     (8, 576, 576, 32, 8, 128, True),   # a served prefill shape
+    (2, 64, 64, 4, 2, 128, True),      # half a 128-row Q tile, half a K tile
+    (3, 1, 1, 4, 1, 128, True),        # one row, one key
+    (1, 192, 192, 8, 2, 128, False),   # a half-empty last tile, full mask
+    (1, 130, 70, 4, 2, 128, True),     # rows past Sk see every key
+    (8, 576, 576, 32, 4, 128, True),   # G = 8 at the served 576
 ])
 def test_flash_kernel_matches_plain(gen, B, Sq, Sk, Hq, Hkv, D, causal):
     q = _randn(gen, B, Sq, Hq, D)
@@ -147,6 +152,63 @@ def test_flash_kernel_kv_len_matches_plain(gen, lens):
     out = flash_attention(q, k, v, causal=True, kv_len=kv_len)
     ref = flash_attention_ref(q, k, v, causal=True, kv_len=kv_len)
     assert bf16_gate(out, ref) <= 1
+
+
+def test_flash_kernel_clips_kv_len_to_sk(gen):
+    """kv_len past Sk masks nothing: the result is the unmasked one."""
+    q = _randn(gen, 3, 200, 8, 128)
+    k, v = _randn(gen, 3, 200, 2, 128), _randn(gen, 3, 200, 2, 128)
+    kv_len = torch.tensor([200, 201, 5000], dtype=torch.int32, device="cuda")
+    out = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+    assert bf16_gate(out, flash_attention_ref(q, k, v, causal=True)) <= 1
+    assert torch.equal(out, flash_attention(q, k, v, causal=True))
+
+
+def test_flash_kernel_replays_in_a_cuda_graph(gen):
+    """Captured once, replayed after its inputs were overwritten in place:
+    the result is the eager one on the new data (the tensor maps are
+    kernel parameters, built at capture from the same addresses)."""
+    q = _randn(gen, 2, 320, 8, 128)
+    k, v = _randn(gen, 2, 320, 4, 128), _randn(gen, 2, 320, 4, 128)
+    kv_len = torch.tensor([320, 77], dtype=torch.int32, device="cuda")
+    run = lambda: flash_attention(q, k, v, causal=True, kv_len=kv_len)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    for t in (q, k, v):
+        t.copy_(_randn(gen, *t.shape))
+    kv_len.copy_(torch.tensor([0, 250], dtype=torch.int32))
+    g.replay()
+    torch.cuda.synchronize()
+    eager = run()
+    assert torch.equal(out, eager)
+    ref = flash_attention_ref(q, k, v, causal=True, kv_len=kv_len)
+    assert bf16_gate(out, ref) <= 1
+
+
+def _misaligned(t):
+    """A contiguous copy of `t` that starts 2 bytes into its storage."""
+    m = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return m.view(t.shape).copy_(t)
+
+
+def test_flash_wrapper_refuses_a_misaligned_view(gen):
+    """TMA needs 16-byte aligned bases: a contiguous view 2 bytes into its
+    storage raises, whichever of q, k and v it is; the wrapper never
+    copies it."""
+    q = _randn(gen, 1, 64, 4, 128)
+    k, v = _randn(gen, 1, 64, 2, 128), _randn(gen, 1, 64, 2, 128)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = _misaligned(args[i])
+        assert args[i].is_contiguous() and args[i].data_ptr() % 16
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(*args)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -406,11 +406,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   CUtensorMap mq, mk, mv, mo;
   cudaError_t e;
-  if ((e = hopper::tiled_map_bf16(&mq, q, (uint64_t)Hq * D, Sq, B, 64, BQ)) ||
-      (e = hopper::tiled_map_bf16(&mk, k, (uint64_t)Hkv * D, Sk, B, 64, BK)) ||
-      (e = hopper::tiled_map_bf16(&mv, v, (uint64_t)Hkv * D, Sk, B, 64, BK)) ||
-      (e = hopper::tiled_map_bf16(&mo, o, (uint64_t)Hq * D, Sq, B, 64,
-                                  BQ / 2)))
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if ((e = hopper::tiled_map(&mq, bf16, q, (uint64_t)Hq * D, Sq, B, 64,
+                             BQ)) ||
+      (e = hopper::tiled_map(&mk, bf16, k, (uint64_t)Hkv * D, Sk, B, 64,
+                             BK)) ||
+      (e = hopper::tiled_map(&mv, bf16, v, (uint64_t)Hkv * D, Sk, B, 64,
+                             BK)) ||
+      (e = hopper::tiled_map(&mo, bf16, o, (uint64_t)Hq * D, Sq, B, 64,
+                             BQ / 2)))
     return e;
   const Shape sh{B, Sq, Sk, Hq, Hkv, causal, (Sq + BQ - 1) / BQ};
   flash_attention_kernel<<<sh.n_qt * Hq * B, THREADS, SMEM, st>>>(

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels: TMA
 // tensor maps and copies, mbarriers, wgmma shared-memory descriptors and
-// bf16 products, named barriers and register reallocation between
+// bf16 and int8 products, named barriers and register reallocation between
 // warpgroups. Nothing here knows what a kernel computes.
 //
 // The tensor maps need the driver's cuTensorMapEncodeTiled. The libraries
@@ -38,28 +38,33 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a row-major (outer, rows, inner) bf16 array at `base`
-// (16-byte aligned, inner a multiple of 8), read and written in boxes of
+// A tensor map over a row-major (outer, rows, inner) array of bf16
+// (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16), fp32 (..._FLOAT32) or int8
+// (..._UINT8: TMA moves bytes, their sign is the reader's) at `base`
+// (16-byte aligned, rows 16-byte multiples), read and written in boxes of
 // box_rows x box_inner elements (one outer index) under the 128-byte
-// swizzle that wgmma's B128 layout reads (box_inner at most 64). Rows past
-// `rows` read as zeros and are never written. Built on the host for every
-// launch and passed by value (a __grid_constant__ parameter), so a CUDA
-// graph replays it with the addresses it was captured with.
-inline cudaError_t tiled_map_bf16(CUtensorMap* map, const void* base,
-                                  uint64_t inner, uint64_t rows,
-                                  uint64_t outer, uint32_t box_inner,
-                                  uint32_t box_rows) {
+// swizzle that wgmma's B128 layout reads (a box row at most 128 bytes: 64
+// bf16, 32 fp32 or 128 int8). Rows and elements past the array's edge
+// read as zeros and are never written. Built on the host for every launch
+// and passed by value (a __grid_constant__ parameter), so a CUDA graph
+// replays it with the addresses it was captured with.
+inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
+                             const void* base, uint64_t inner, uint64_t rows,
+                             uint64_t outer, uint32_t box_inner,
+                             uint32_t box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const uint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32    ? 4
+                        : type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                                                                   : 1;
   const cuuint64_t dims[3] = {inner, rows, outer};
-  const cuuint64_t strides[2] = {inner * 2, inner * rows * 2};
+  const cuuint64_t strides[2] = {inner * elem, inner * rows * elem};
   const cuuint32_t box[3] = {box_inner, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 3, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -149,11 +154,23 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       : "memory");
 }
 
-// Commits the issued stores and waits until they have read their shared
-// memory (which may then be reused, or the block exit).
-__device__ __forceinline__ void tma_store_wait() {
+// Commits the stores issued since the last commit as one group.
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Waits until at most N committed groups have yet to read their shared
+// memory (which may then be reused, or the block exit).
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+}
+
+// Commits the issued stores and waits until they have read their shared
+// memory.
+__device__ __forceinline__ void tma_store_wait() {
+  tma_store_commit();
+  tma_store_wait_read<0>();
 }
 
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
@@ -224,6 +241,10 @@ __device__ __forceinline__ void fence_operand(float& x) {
 // The same for an A operand in registers, which the wgmma reads until it
 // has completed: fenced after the wait, it stays live until then.
 __device__ __forceinline__ void fence_operand(uint32_t& x) {
+  asm volatile("" : "+r"(x) :: "memory");
+}
+
+__device__ __forceinline__ void fence_operand(int& x) {
   asm volatile("" : "+r"(x) :: "memory");
 }
 
@@ -308,5 +329,58 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate),
         "n"(TRANS_B));
 }
+
+// ---- device: int8 wgmma ---------------------------------------------------
+
+#define HOPPER_D4 "{%0, %1, %2, %3}"
+#define HOPPER_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOPPER_D16                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define HOPPER_D128                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "      \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "      \
+  "%122, %123, %124, %125, %126, %127}"
+// int32 accumulator operands d[i] .. d[i + n - 1]
+#define HOPPER_R4(d, i) \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define HOPPER_R8(d, i) HOPPER_R4(d, i), HOPPER_R4(d, i + 4)
+#define HOPPER_R16(d, i) HOPPER_R8(d, i), HOPPER_R8(d, i + 8)
+#define HOPPER_R32(d, i) HOPPER_R16(d, i), HOPPER_R16(d, i + 16)
+#define HOPPER_R64(d, i) HOPPER_R32(d, i), HOPPER_R32(d, i + 32)
+#define HOPPER_R128(d, i) HOPPER_R64(d, i), HOPPER_R64(d, i + 64)
+
+// D (64 x N, int32) = A (64 x 32) * B (32 x N) + (accumulate ? D : 0),
+// issued by one warpgroup; A and B int8 in shared memory (descriptors),
+// both K-major: the integer wgmma has no transpose, so an int8 operand is
+// always K-major. A k-step of 32 int8 is 32 bytes, as 16 bf16 are, so
+// desc_sw128 and desc_advance serve as they are. d holds N / 2 int32 a
+// thread in the accumulator layout above (row r, r + 8; column 8 j + 2 (t
+// % 4) + e % 2). Named wgmma_m64n<N>k32_s8 for N = 8, 16, 32, 64, 128, 256.
+#define HOPPER_WGMMA_S8(N, R, DSTR, OPS, IA, IB, IC)                      \
+  __device__ __forceinline__ void wgmma_m64n##N##k32_s8(                   \
+      int(&d)[R], uint64_t a, uint64_t b, int accumulate) {                \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IC ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 "  \
+                 DSTR ", %" IA ", %" IB ", p;\n}"                          \
+                 : OPS                                                     \
+                 : "l"(a), "l"(b), "r"(accumulate));                       \
+  }
+
+HOPPER_WGMMA_S8(8, 4, HOPPER_D4, HOPPER_R4(d, 0), "4", "5", "6")
+HOPPER_WGMMA_S8(16, 8, HOPPER_D8, HOPPER_R8(d, 0), "8", "9", "10")
+HOPPER_WGMMA_S8(32, 16, HOPPER_D16, HOPPER_R16(d, 0), "16", "17", "18")
+HOPPER_WGMMA_S8(64, 32, HOPPER_D32, HOPPER_R32(d, 0), "32", "33", "34")
+HOPPER_WGMMA_S8(128, 64, HOPPER_D64, HOPPER_R64(d, 0), "64", "65", "66")
+HOPPER_WGMMA_S8(256, 128, HOPPER_D128, HOPPER_R128(d, 0), "128", "129",
+                "130")
+
+#undef HOPPER_WGMMA_S8
 
 }  // namespace hopper

@@ -5,256 +5,483 @@
 // (x_scale * w_scale[n]), where acc is the exact int32 sum over all of K
 // of x_q[m, k] * w_q[k, n]; the product of the two scales is taken first,
 // and the one conversion and the one multiply happen once, in the
-// epilogue, so the result equals its plain version bit for bit. x_q is
-// (M, K) row-major, w_q (K, N) row-major (the reference's layout), out
-// (M, N) fp32. K must be a multiple of 16 and N of 8 (the loads' widths);
-// any M. Rows past M, columns past N and K past the last tile are loaded
-// as zero and never stored, so the TPU kernel's divisibility assert is
-// gone.
+// epilogue, so the result equals its plain version bit for bit whatever
+// the order of the sums. x_q is (M, K) row-major; w_q is the reference's
+// (K, N) weight stored K-major, i.e. the rows of a contiguous (N, K) array
+// `wt` with w_q[k, n] = wt[n, k]; out is (M, N) fp32. K must be a multiple
+// of 16 (TMA's row stride) and N of 8; any M. Rows past M or N and K past
+// the last tile are read as zeros by TMA and never stored.
 //
-// What bounds it on this card: at the decode shapes (M = 8) device-memory
-// bytes, the K x N weight read once: 2 M ops per weight byte against the
-// ~590 int8 ops per byte at which the tensor cores (1,979 TOP/s) would
-// bound. At the prefill shapes (M = 8 * 512) the tensor cores.
+// What bounds it on this card: at the decode shapes (M <= 64) the K x N
+// weight's bytes, read once: 2 M operations per weight byte against the
+// ~590 int8 operations per byte at which the tensor cores (1,979 TOP/s)
+// would bound. At the prefill shapes (M = 8 x 512 rows) the tensor cores.
 //
-// What the design does: integer tensor cores through
-// `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`, int32 accumulators in
-// registers. That instruction wants K contiguous in both operands, and
-// `ldmatrix.trans` moves 16-bit elements, not bytes, so the (K, N) weight
-// tile is transposed on its way into shared memory: each thread loads a
-// 4 (k) x 8 (n) block, four 8-byte row pieces, and a byte permute turns it
-// into eight 4-byte words of 4 consecutive k for one n. Shared rows are
-// padded by 16 bytes so that the fragment loads are free of bank
-// conflicts. Tiles are double-buffered through registers: the next tile's
-// global loads are in flight while the current one feeds the tensor cores.
-// Two tile shapes: 16 x 32 x 256 for M <= 16 (decode and the prefill
-// lm_head), so a block streams a narrow, deep slice of the weight, and
-// 128 x 128 x 64 otherwise. Not done yet: wgmma and TMA, and a split-K for
-// M = 8, where N / 32 blocks under-fill the 132 SMs at the narrow
-// projections.
+// What the design does. The integer wgmma (.s32.s8.s8) has no transpose:
+// both operands must be K-major in shared memory, which is why the model
+// stores its int8 weights K-major (one copy, the reference's (K, N) shape
+// and values). Every tile arrives by TMA under the 128-byte swizzle, one
+// 128-byte k-tile (128 int8 of K) per stage, into a ring of stages with a
+// "full" mbarrier (the copies landed) and an "empty" one (the consumers
+// are done) per stage; one thread issues the copies; int32 accumulators
+// stay in registers until the epilogue.
+//  - Prefill (M > 64): 128 x BN tiles of out (BN 256, or 128 where 128 x
+//    256 tiles would not fill the 132 SMs), numbered with M fastest so
+//    that the blocks in flight share weight tiles (each comes from device
+//    memory once, x from L2), walked by a persistent grid of one block an
+//    SM. Warpgroup 0 is the producer (it gives its registers to the
+//    others, and fills the ring with the next tile's stages while the
+//    consumers run an epilogue); warpgroups 1 and 2 own 64 rows each and
+//    issue wgmma m64nBNk32 with x (64 x 32) as A and the weight tile (BN x
+//    32, K-major) as B, 4 per stage, keeping one stage's products in
+//    flight while they wait for the next. The epilogue stages the fp32
+//    tile through shared memory in 64 x 32 chunks that TMA stores, so the
+//    output's writes run on under the next tile's products.
+//  - Decode (M <= 64): the roles swap, out^T = w^T x^T. The weight tile
+//    (64 output columns x 32 of K, K-major) is A and x (M rows, K-major,
+//    padded to MN = 8, 16, 32 or 64 rows) is B of wgmma m64nMNk32; one
+//    consumer warpgroup and one producer warp a block, a 4-stage ring
+//    (32 KB of weight in flight, 4-5 blocks an SM). Where N / 64 tiles do
+//    not fill the SMs and K is long, K is split over a cluster of 2, 4 or
+//    8 blocks along gridDim.y: each sums its K range in int32, the partial
+//    sums meet in the first block's registers through distributed shared
+//    memory, and only then are they converted and scaled, once.
+#include <algorithm>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-template <int BM_, int BN_, int BK_, int WM_, int WN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
-  static constexpr int THREADS = WM * WN * 32;
-  static constexpr int TM = BM / WM, TN = BN / WN;   // warp tile
-  static constexpr int MI = TM / 16, NI = TN / 8;    // mma tiles per warp
-  static constexpr int LDS = BK + 16;                // padded row, bytes
-  static constexpr int A_CHUNKS = BM * BK / 16;      // 16-byte pieces
-  static constexpr int B_CHUNKS = (BK / 4) * (BN / 8);  // 4 x 8 blocks
-  static constexpr int A_PER = (A_CHUNKS + THREADS - 1) / THREADS;
-  static constexpr int B_PER = B_CHUNKS / THREADS;
-  static constexpr int STAGE = (BM + BN) * LDS;      // bytes per buffer
-  static constexpr int SMEM = 2 * STAGE;
-  static_assert(TM % 16 == 0 && TN % 8 == 0 && BK % 32 == 0, "tile");
-  static_assert(B_CHUNKS % THREADS == 0, "B chunks per thread");
-  static_assert(SMEM <= 48 * 1024, "static launch needs <= 48 KB");
+constexpr int BK = 128;                // bytes (int8) of K per stage
+constexpr int SM_COUNT = 132;          // H100 SXM
+
+// ---- prefill --------------------------------------------------------------
+
+constexpr int P_BM = 128, P_STAGES = 4, P_THREADS = 384, P_CONSUMERS = 256;
+constexpr bool PERSISTENT = true;      // one block an SM, walking tiles
+
+// The epilogue stages out in chunks of 64 rows x 32 fp32 (one 128-byte
+// swizzled row each), two buffers a consumer warpgroup.
+constexpr int OUT_CHUNK = 64 * 32 * 4;
+
+template <int BN>
+struct Prefill {
+  static constexpr int A_TILE = P_BM * BK;           // 16 KB
+  static constexpr int STAGE = A_TILE + BN * BK;     // 48 or 32 KB
+  static constexpr int OFF_OUT = P_STAGES * STAGE;
+  static constexpr int OFF_BAR = OFF_OUT + 4 * OUT_CHUNK;
+  static constexpr size_t SMEM = OFF_BAR + 2 * P_STAGES * 8 + 1024;
 };
 
-using Small = Tile<16, 32, 256, 1, 4>;    // M <= 16
-using Large = Tile<128, 128, 64, 2, 4>;   // M > 16
+struct Shape {
+  int M, N, nkt, tiles_m, tiles;       // k-tiles, M tiles, all tiles
+};
 
-__device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                              const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+struct Bars {
+  uint64_t full[P_STAGES], empty[P_STAGES];
+};
+
+// The tiles are numbered with M fastest, so the blocks in flight share
+// weight tiles; a block takes tiles blockIdx.x, + gridDim.x, ... Each role
+// reads blockIdx.x after its register reallocation, from a volatile
+// %ctaid.x (a value live across setmaxnreg is spilled by ptxas).
+__device__ __forceinline__ int first_tile() {
+  int id;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(id));
+  return id;
 }
 
-__device__ inline uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int BN>
+__device__ __forceinline__ int2 tile_origin(const Shape& sh, int tile) {
+  return make_int2((tile % sh.tiles_m) * P_BM, (tile / sh.tiles_m) * BN);
 }
 
-// r[kk] holds bytes n0..n0+3 of row k0+kk; returns in t[j] the bytes
-// k0..k0+3 of column n0+j (a 4 x 4 byte transpose).
-__device__ inline void transpose4x4(const uint32_t (&r)[4], uint32_t (&t)[4]) {
-  const uint32_t x0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t x1 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t y0 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t y1 = __byte_perm(r[2], r[3], 0x7362);
-  t[0] = __byte_perm(x0, x1, 0x5410);
-  t[1] = __byte_perm(x0, x1, 0x7632);
-  t[2] = __byte_perm(y0, y1, 0x5410);
-  t[3] = __byte_perm(y0, y1, 0x7632);
+template <int BN>
+__device__ __forceinline__ void wgmma_bn(int (&d)[BN / 2], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (BN == 256)
+    hopper::wgmma_m64n256k32_s8(d, a, b, 1);
+  else
+    hopper::wgmma_m64n128k32_s8(d, a, b, 1);
 }
 
-template <class T>
-__global__ void __launch_bounds__(T::THREADS)
-int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ x_scale,
-                   const float* __restrict__ w_scale, float* __restrict__ out,
-                   int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / T::WN, wn = warp % T::WN;
-  const int g = lane / 4, t4 = lane % 4;            // mma fragment coords
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-
-  uint4 ra[T::A_PER];
-  uint2 rb[T::B_PER][4];
-
-  // Global -> registers: A as 16-byte row pieces; B as 4 (k) x 8 (n)
-  // blocks, k-quad fastest across threads so the transposed stores of a
-  // warp fall in distinct banks.
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < T::A_PER; ++i) {
-      const int c = tid + i * T::THREADS;
-      const int r = c / (T::BK / 16), kc = (c % (T::BK / 16)) * 16;
-      ra[i] = make_uint4(0, 0, 0, 0);
-      if (c < T::A_CHUNKS && m0 + r < M && k0 + kc < K)
-        ra[i] = *reinterpret_cast<const uint4*>(
-            x + (size_t)(m0 + r) * K + k0 + kc);
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_PER; ++i) {
-      const int c = tid + i * T::THREADS;
-      const int kq = c % (T::BK / 4), nq = c / (T::BK / 4);
-      const int n = n0 + nq * 8;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int k = k0 + kq * 4 + kk;
-        rb[i][kk] = make_uint2(0, 0);
-        if (k < K && n < N)
-          rb[i][kk] = *reinterpret_cast<const uint2*>(w + (size_t)k * N + n);
-      }
-    }
-  };
-
-  // Registers -> shared: A as it is, B transposed to (n, k).
-  auto store = [&](int buf) {
-    unsigned char* As = smem + buf * T::STAGE;
-    unsigned char* Bs = As + T::BM * T::LDS;
-#pragma unroll
-    for (int i = 0; i < T::A_PER; ++i) {
-      const int c = tid + i * T::THREADS;
-      if (c < T::A_CHUNKS) {
-        const int r = c / (T::BK / 16), kc = (c % (T::BK / 16)) * 16;
-        *reinterpret_cast<uint4*>(As + r * T::LDS + kc) = ra[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_PER; ++i) {
-      const int c = tid + i * T::THREADS;
-      const int kq = c % (T::BK / 4), nq = c / (T::BK / 4);
-      const uint32_t lo[4] = {rb[i][0].x, rb[i][1].x, rb[i][2].x, rb[i][3].x};
-      const uint32_t hi[4] = {rb[i][0].y, rb[i][1].y, rb[i][2].y, rb[i][3].y};
-      uint32_t t[4];
-      transpose4x4(lo, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(Bs + (nq * 8 + j) * T::LDS + kq * 4) =
-            t[j];
-      transpose4x4(hi, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(Bs + (nq * 8 + 4 + j) * T::LDS +
-                                     kq * 4) = t[j];
-    }
-  };
-
-  int acc[T::MI][T::NI][4];
-#pragma unroll
-  for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < T::NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  auto compute = [&](int buf) {
-    const unsigned char* As = smem + buf * T::STAGE;
-    const unsigned char* Bs = As + T::BM * T::LDS;
-#pragma unroll
-    for (int kk = 0; kk < T::BK; kk += 32) {
-      uint32_t a[T::MI][4], b[T::NI][2];
-#pragma unroll
-      for (int mi = 0; mi < T::MI; ++mi) {
-        const unsigned char* p = As + (wm * T::TM + mi * 16 + g) * T::LDS +
-                                 kk + t4 * 4;
-        a[mi][0] = lds32(p);
-        a[mi][1] = lds32(p + 8 * T::LDS);
-        a[mi][2] = lds32(p + 16);
-        a[mi][3] = lds32(p + 8 * T::LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < T::NI; ++ni) {
-        const unsigned char* p = Bs + (wn * T::TN + ni * 8 + g) * T::LDS +
-                                 kk + t4 * 4;
-        b[ni][0] = lds32(p);
-        b[ni][1] = lds32(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < T::NI; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-    }
-  };
-
-  const int nk = (K + T::BK - 1) / T::BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) * T::BK);
-    compute(kt & 1);
-    if (kt + 1 < nk) store((kt + 1) & 1);
-    __syncthreads();
-  }
-
-  // Epilogue: one int -> float conversion and one multiply by
-  // (x_scale * w_scale[n]), as the plain version does them.
+template <int BN>
+__device__ __forceinline__ void prefill_consume(
+    uint8_t* smem, Bars* bars, const CUtensorMap* map_o,
+    const float* __restrict__ x_scale, const float* __restrict__ w_scale,
+    const Shape& sh) {
+  using P = Prefill<BN>;
+  const int cw = threadIdx.x / 128 - 1;       // consumer warpgroup, 0 or 1
+  const int t = threadIdx.x % 128, lane = t % 32;
   const float xs = *x_scale;
+  int it = 0;                                 // stages consumed so far
+  for (int tile = first_tile(); tile < sh.tiles; tile += gridDim.x) {
+    const int2 o = tile_origin<BN>(sh, tile);
+    int acc[BN / 2];
 #pragma unroll
-  for (int ni = 0; ni < T::NI; ++ni) {
-    const int n = n0 + wn * T::TN + ni * 8 + t4 * 2;
-    if (n >= N) continue;                  // N is even: n + 1 < N too
-    const float s0 = __fmul_rn(xs, w_scale[n]);
-    const float s1 = __fmul_rn(xs, w_scale[n + 1]);
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+
+    for (int kt = 0; kt < sh.nkt; ++kt, ++it) {
+      const int s = it % P_STAGES;
+      const uint8_t* a = smem + s * P::STAGE + cw * 64 * BK;
+      const uint8_t* b = smem + s * P::STAGE + P::A_TILE;
+      hopper::mbar_wait(&bars->full[s], (it / P_STAGES) & 1);
+      const uint64_t da = hopper::desc_sw128(a, 16, 1024);
+      const uint64_t db = hopper::desc_sw128(b, 16, 1024);
+      hopper::fence_operands(acc);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi) {
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_bn<BN>(acc, hopper::desc_advance(da, kk * 32),
+                     hopper::desc_advance(db, kk * 32));
+      hopper::wgmma_commit();
+      // the previous stage's products are done: hand its tiles back
+      hopper::wgmma_wait<1>();
+      hopper::fence_operands(acc);
+      if (kt > 0) hopper::mbar_arrive(&bars->empty[(it - 1) % P_STAGES]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    // the tile's last stage: the producer fills the ring with the next
+    // tile's stages while this one's epilogue runs
+    hopper::mbar_arrive(&bars->empty[(it - 1) % P_STAGES]);
+
+    // The epilogue, 32 columns at a time: acc[4 j + e] is row r + 8 (e / 2),
+    // column 8 j + 2 (t % 4) + e % 2. Each chunk goes into one of this
+    // warpgroup's two buffers under the 128-byte swizzle (16-byte piece p
+    // of row rr at piece p ^ (rr % 8)), and one thread stores it with TMA,
+    // which clips rows past M and columns past N; the store runs on while
+    // the next chunk is written and, after the last, while the next
+    // tile's products run.
+    uint8_t* bufs = smem + P::OFF_OUT + cw * 2 * OUT_CHUNK;
+    const int r = 16 * (t / 32) + lane / 4;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * T::TM + mi * 16 + g + h * 8;
-        if (m < M) {
-          *reinterpret_cast<float2*>(out + (size_t)m * N + n) = make_float2(
-              __fmul_rn(__int2float_rn(acc[mi][ni][2 * h]), s0),
-              __fmul_rn(__int2float_rn(acc[mi][ni][2 * h + 1]), s1));
+    for (int c = 0; c < BN / 32; ++c) {
+      uint8_t* buf = bufs + (c % 2) * OUT_CHUNK;
+      if (t == 0) hopper::tma_store_wait_read<1>();   // buf's last store
+      hopper::named_sync(1 + cw, 128);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * c + jj;
+        const int n = o.y + 8 * j + 2 * (lane % 4);   // N even: n + 1 too
+        const float s0 = n < sh.N ? __fmul_rn(xs, w_scale[n]) : 0.f;
+        const float s1 = n < sh.N ? __fmul_rn(xs, w_scale[n + 1]) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = r + 8 * h;
+          const int piece = (2 * jj + (lane % 4) / 2) ^ (rr % 8);
+          *reinterpret_cast<float2*>(buf + rr * 128 + piece * 16 +
+                                     8 * (lane % 2)) =
+              make_float2(
+                  __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), s0),
+                  __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), s1));
+        }
+      }
+      hopper::fence_async_shared();
+      hopper::named_sync(1 + cw, 128);
+      if (t == 0) {
+        hopper::tma_store_3d(map_o, buf, o.y + 32 * c, o.x + 64 * cw, 0);
+        hopper::tma_store_commit();
+      }
+    }
+  }
+  if (t == 0) hopper::tma_store_wait_read<0>();
+}
+
+template <int BN>
+__global__ void __launch_bounds__(P_THREADS, 1)
+int8_matmul_prefill_kernel(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_o,
+                           const float* __restrict__ x_scale,
+                           const float* __restrict__ w_scale,
+                           const Shape sh) {
+  using P = Prefill<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - hopper::smem_u32(smem_raw) % 1024) % 1024);
+  Bars* bars = reinterpret_cast<Bars*>(smem + P::OFF_BAR);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P_STAGES; ++s) {
+      hopper::mbar_init(&bars->full[s], 1);
+      hopper::mbar_init(&bars->empty[s], P_CONSUMERS);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {          // producer
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;                   // stages filled so far
+      for (int tile = first_tile(); tile < sh.tiles; tile += gridDim.x) {
+        const int2 o = tile_origin<BN>(sh, tile);
+        for (int kt = 0; kt < sh.nkt; ++kt, ++it) {
+          const int s = it % P_STAGES;
+          if (it >= P_STAGES)
+            hopper::mbar_wait(&bars->empty[s], (it / P_STAGES - 1) & 1);
+          hopper::mbar_arrive_expect_tx(&bars->full[s], P::STAGE);
+          uint8_t* st = smem + s * P::STAGE;
+          hopper::tma_load_3d(st, &map_x, &bars->full[s], kt * BK, o.x, 0);
+          hopper::tma_load_3d(st + P::A_TILE, &map_w, &bars->full[s],
+                              kt * BK, o.y, 0);
         }
       }
     }
+  } else {                          // consumers
+    hopper::regs_inc<232>();
+    prefill_consume<BN>(smem, bars, &map_o, x_scale, w_scale, sh);
   }
 }
 
-template <class T>
-cudaError_t launch(const void* x, const void* w, const void* xs,
-                   const void* ws, void* out, int M, int N, int K,
-                   cudaStream_t stream) {
-  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
-  int8_matmul_kernel<T><<<grid, T::THREADS, T::SMEM, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<float*>(out), M, N, K);
+// ---- decode ---------------------------------------------------------------
+
+constexpr int D_BN = 64;               // output columns (weight rows) a block
+constexpr int D_STAGES = 4, D_THREADS = 160;   // consumer warpgroup + warp
+// K is split over a cluster of up to 8 blocks (the portable cluster size)
+// while the blocks do not fill the SMs once and each split keeps at least
+// SPLIT_MIN_KT k-tiles: a cluster's reduction costs more than it saves on
+// a short K range
+constexpr int MAX_SPLIT = 8, SPLIT_FILL = 1, SPLIT_MIN_KT = 16;
+
+template <int MN>
+struct Decode {
+  static constexpr int W_TILE = D_BN * BK;           // 8 KB
+  static constexpr int STAGE = W_TILE + MN * BK;     // + x's rows
+  static constexpr int OFF_RED = D_STAGES * STAGE;   // partial sums
+  static constexpr int OFF_BAR = OFF_RED + D_BN * MN * 4;
+  static constexpr size_t SMEM = OFF_BAR + 2 * D_STAGES * 8 + 1024;
+  static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
+};
+
+struct DecodeShape {
+  int M, N, nkt, per_split;            // k-tiles in all, and per split
+};
+
+template <int MN>
+__device__ __forceinline__ void wgmma_mn(int (&d)[MN / 2], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (MN == 8)
+    hopper::wgmma_m64n8k32_s8(d, a, b, 1);
+  else if constexpr (MN == 16)
+    hopper::wgmma_m64n16k32_s8(d, a, b, 1);
+  else if constexpr (MN == 32)
+    hopper::wgmma_m64n32k32_s8(d, a, b, 1);
+  else
+    hopper::wgmma_m64n64k32_s8(d, a, b, 1);
+}
+
+template <int MN>
+__global__ void __launch_bounds__(D_THREADS)
+int8_matmul_decode_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const float* __restrict__ x_scale,
+                          const float* __restrict__ w_scale,
+                          float* __restrict__ out, const DecodeShape sh) {
+  using P = Decode<MN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - hopper::smem_u32(smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::OFF_BAR);
+  uint64_t* empty = full + D_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < D_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int n0 = blockIdx.x * D_BN;
+  const int kt0 = blockIdx.y * sh.per_split;
+  const int cnt = max(0, min(sh.nkt - kt0, sh.per_split));
+  int acc[MN / 2];
+#pragma unroll
+  for (int i = 0; i < MN / 2; ++i) acc[i] = 0;
+
+  if (threadIdx.x >= 128) {           // producer warp
+    if (threadIdx.x == 128) {
+      for (int i = 0; i < cnt; ++i) {
+        const int s = i % D_STAGES, k = (kt0 + i) * BK;
+        if (i >= D_STAGES)
+          hopper::mbar_wait(&empty[s], (i / D_STAGES - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], P::STAGE);
+        uint8_t* st = smem + s * P::STAGE;
+        hopper::tma_load_3d(st, &map_w, &full[s], k, n0, 0);
+        hopper::tma_load_3d(st + P::W_TILE, &map_x, &full[s], k, 0, 0);
+      }
+    }
+    __syncwarp();
+  } else {                            // consumer warpgroup
+    for (int i = 0; i < cnt; ++i) {
+      const int s = i % D_STAGES;
+      const uint8_t* w = smem + s * P::STAGE;
+      hopper::mbar_wait(&full[s], (i / D_STAGES) & 1);
+      const uint64_t dw = hopper::desc_sw128(w, 16, 1024);
+      const uint64_t dx = hopper::desc_sw128(w + P::W_TILE, 16, 1024);
+      hopper::fence_operands(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_mn<MN>(acc, hopper::desc_advance(dw, kk * 32),
+                     hopper::desc_advance(dx, kk * 32));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+      hopper::mbar_arrive(&empty[s]);
+    }
+  }
+
+  // split K: the cluster's int32 partial sums added into block 0's
+  int* red = reinterpret_cast<int*>(smem + P::OFF_RED);
+  const int t = threadIdx.x;
+  if (gridDim.y > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (t < 128) {
+#pragma unroll
+      for (int i = 0; i < MN / 2; ++i) red[i * 128 + t] = acc[i];
+    }
+    cluster.sync();
+    const unsigned rank = cluster.block_rank();
+    if (rank == 0 && t < 128) {
+      for (unsigned r = 1; r < gridDim.y; ++r) {
+        const int* other = cluster.map_shared_rank(red, r);
+#pragma unroll
+        for (int i = 0; i < MN / 2; ++i) acc[i] += other[i * 128 + t];
+      }
+    }
+    cluster.sync();                   // the others' sums stay until read
+    if (rank != 0) return;
+  }
+  if (t >= 128) return;
+
+  // acc[4 j + e]: weight row (output column) n0 + r + 8 (e / 2), x row
+  // (output row) 8 j + 2 (t % 4) + e % 2
+  const int lane = t % 32;
+  const int n_lo = n0 + 16 * (t / 32) + lane / 4;
+  const float xs = *x_scale;
+  float sc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    sc[h] = n_lo + 8 * h < sh.N ? __fmul_rn(xs, w_scale[n_lo + 8 * h]) : 0.f;
+#pragma unroll
+  for (int j = 0; j < MN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 8 * j + 2 * (lane % 4) + e % 2, n = n_lo + 8 * (e / 2);
+      if (m < sh.M && n < sh.N)
+        out[(size_t)m * sh.N + n] =
+            __fmul_rn(__int2float_rn(acc[4 * j + e]), sc[e / 2]);
+    }
+  }
+}
+
+// ---- host -----------------------------------------------------------------
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  configured = e == cudaSuccess;
+  return e;
+}
+
+template <int BN>
+cudaError_t launch_prefill(const void* x, const void* w, const float* xs,
+                           const float* ws, float* out, int M, int N, int K,
+                           cudaStream_t st) {
+  static bool configured = false;
+  cudaError_t e = allow_smem(int8_matmul_prefill_kernel<BN>,
+                             Prefill<BN>::SMEM, configured);
+  if (e) return e;
+  CUtensorMap mx, mw, mo;
+  constexpr CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if ((e = hopper::tiled_map(&mx, s8, x, K, M, 1, BK, P_BM)) ||
+      (e = hopper::tiled_map(&mw, s8, w, K, N, 1, BK, BN)) ||
+      (e = hopper::tiled_map(&mo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, N, M,
+                             1, 32, 64)))
+    return e;
+  const int tiles_m = (M + P_BM - 1) / P_BM;
+  const Shape sh{M, N, (K + BK - 1) / BK, tiles_m,
+                 tiles_m * ((N + BN - 1) / BN)};
+  // persistent: one block an SM walks the tiles
+  const int blocks = PERSISTENT ? std::min(sh.tiles, SM_COUNT) : sh.tiles;
+  int8_matmul_prefill_kernel<BN>
+      <<<blocks, P_THREADS, Prefill<BN>::SMEM, st>>>(mx, mw, mo, xs, ws, sh);
   return cudaGetLastError();
+}
+
+template <int MN>
+cudaError_t launch_decode(const void* x, const void* w, const float* xs,
+                          const float* ws, float* out, int M, int N, int K,
+                          cudaStream_t st) {
+  static bool configured = false;
+  cudaError_t e = allow_smem(int8_matmul_decode_kernel<MN>,
+                             Decode<MN>::SMEM, configured);
+  if (e) return e;
+  CUtensorMap mx, mw;
+  constexpr CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if ((e = hopper::tiled_map(&mx, s8, x, K, M, 1, BK, MN)) ||
+      (e = hopper::tiled_map(&mw, s8, w, K, N, 1, BK, D_BN)))
+    return e;
+  const int tiles = (N + D_BN - 1) / D_BN, nkt = (K + BK - 1) / BK;
+  int split = 1;
+  while (split < MAX_SPLIT && tiles * split < SPLIT_FILL * SM_COUNT &&
+         nkt >= 2 * split * SPLIT_MIN_KT)
+    split *= 2;
+  const DecodeShape sh{M, N, nkt, (nkt + split - 1) / split};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, split, 1);
+  cfg.blockDim = dim3(D_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Decode<MN>::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, int8_matmul_decode_kernel<MN>, mx, mw, xs,
+                         ws, out, sh);
+  return e ? e : cudaGetLastError();
 }
 
 }  // namespace
 
+// x (M, K) row-major; w the (K, N) weight stored K-major, as the rows of a
+// contiguous (N, K) array; out (M, N) fp32; all 16-byte aligned (TMA). The path is chosen
+// by M alone: M <= 64 decode, else prefill.
 extern "C" int int8_matmul_s8(const void* x, const void* w,
                               const void* x_scale, const void* w_scale,
                               void* out, int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 8)
     return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return cudaErrorMisalignedAddress;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return M <= Small::BM ? launch<Small>(x, w, x_scale, w_scale, out, M, N, K, s)
-                        : launch<Large>(x, w, x_scale, w_scale, out, M, N, K, s);
+  const float* xs = static_cast<const float*>(x_scale);
+  const float* ws = static_cast<const float*>(w_scale);
+  float* o = static_cast<float*>(out);
+  if (M <= 8) return launch_decode<8>(x, w, xs, ws, o, M, N, K, s);
+  if (M <= 16) return launch_decode<16>(x, w, xs, ws, o, M, N, K, s);
+  if (M <= 32) return launch_decode<32>(x, w, xs, ws, o, M, N, K, s);
+  if (M <= 64) return launch_decode<64>(x, w, xs, ws, o, M, N, K, s);
+  // 128 x 256 tiles where they fill the card, else 128 x 128
+  const long tiles256 = (long)((M + P_BM - 1) / P_BM) * ((N + 255) / 256);
+  return tiles256 >= SM_COUNT
+             ? launch_prefill<256>(x, w, xs, ws, o, M, N, K, s)
+             : launch_prefill<128>(x, w, xs, ws, o, M, N, K, s);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -14,8 +14,18 @@ Counterpart of `repro.quant`, all of it:
 `QuantConfig` routes every matmul of the model. `quantize_tree` converts a
 bf16 parameter tree into quantized storage: each weight matrix becomes
 `{"q": (..., d_in, d_out) int8 or float8_e4m3fn, "scale": (..., 1, d_out)
-fp32}`, in the reference's layout, so the int8 kernel reads the
-reference's `(K, N)` weight as it is.
+fp32}`, with the reference's shapes and values.
+
+Storage: the int8 kernel's tensor-core product takes the weight K-major,
+so every int8 *matrix* (2-D: the attention projections, dense MLPs, the
+Mamba projections and the lm_head, all of which `linear` reads) is stored
+K-major, once: `q` is the `.mT` view of a contiguous `(d_out, d_in)`
+tensor, strides `(1, d_in)` (`k_major`). Stacked int8 weights (3-D and
+more: the MoE experts `(E, d, f)`, which `models.moe._w` dequantizes and
+which never reach the kernel) and fp8 weights keep the row-major layout.
+The number of dimensions tells the two apart, since `linear` takes 2-D
+weights only. `stored` is that rule; `quantize_weight` and
+`weights.params_from_jax` both apply it.
 """
 from __future__ import annotations
 
@@ -64,15 +74,28 @@ def _per_channel_scale(w: torch.Tensor, qmax: float) -> torch.Tensor:
     return torch.clamp(amax, min=1e-8) / qmax
 
 
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """The same (K, N) matrix stored K-major: the `.mT` view of a
+    contiguous (N, K) tensor, strides (1, K). Copies unless it is stored
+    so already."""
+    return q.mT.contiguous().mT
+
+
+def stored(q: torch.Tensor) -> torch.Tensor:
+    """A quantized weight in the layout the model keeps it in: an int8
+    matrix K-major, anything else (stacked experts, fp8) as it is."""
+    return k_major(q) if q.dtype == torch.int8 and q.ndim == 2 else q
+
+
 def quantize_weight(w: torch.Tensor, mode: str):
     """-> dict(q=storage tensor, scale=(..., 1, d_out) fp32). bf16 passes
-    through with scale None."""
+    through with scale None. An int8 matrix (2-D) is stored K-major."""
     if mode == "bf16":
         return {"q": w, "scale": None}
     if mode == "int8":
         scale = _per_channel_scale(w, 127.0)
         q = torch.clamp(torch.round(w.float() / scale), -127, 127)
-        return {"q": q.to(torch.int8), "scale": scale}
+        return {"q": stored(q.to(torch.int8)), "scale": scale}
     if mode not in ("fp8", "fp8_native"):
         raise ValueError(f"unknown quant mode {mode!r}")
     # fp8 e4m3 (both fp8 modes store the same bytes): max normal 448
@@ -117,7 +140,7 @@ def quantize_tree(params, mode: str):
     """Quantize every 2D+ bf16 weight in a parameter tree (dicts and lists
     of tensors); norms, embeddings, the router and 1D vectors stay as they
     are. Returns a tree where those weights become `quantize_weight`
-    dicts."""
+    dicts (int8 matrices stored K-major, stacked experts row-major)."""
     if mode == "bf16":
         return params
 

@@ -11,8 +11,11 @@ e4m3 as "float8_e4m3fn", viewed as uint8 and then as
 `quantize_tree`), MoE blocks (experts `(R, E, d, f)`, router `(R, d,
 E)` fp32) and Mamba blocks (projections, `conv_w (R, di, k)`, and the
 fp32 `A_log (R, di, N)`, `D (R, di)` and `dt_bias (R, di)`) are cut per
-layer like any other leaf. `pools_from_jax` cuts the reference's serving
-state (K/V pools and Mamba states, stacked the same way) per layer.
+layer like any other leaf; an int8 matrix that `linear` reads (2-D once
+cut) is then stored K-major, as `quant.quantize_weight` stores it
+(`quant.stored`: one transposing copy, the same values). `pools_from_jax` cuts the reference's
+serving state (K/V pools and Mamba states, stacked the same way) per
+layer.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
+from repro_torch.quant import stored
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
@@ -42,6 +46,17 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _stored(tree):
+    """Every quantized weight `{"q", "scale"}` of a tree in the layout the
+    model keeps it in (`quant.stored`: int8 matrices K-major)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _stored(v) for k, v in tree.items()}
+    if isinstance(out.get("q"), torch.Tensor) and "scale" in out:
+        out["q"] = stored(out["q"])
+    return out
+
+
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
                     device="cpu") -> Dict[str, Any]:
     """np_params: the reference's params with every leaf as a numpy array
@@ -49,14 +64,16 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
     model_lib.check_served(cfg)
     U = model_lib.unit_size(cfg)
     blocks = np_params["blocks"]
-    layers = [_map(blocks[i % U], lambda a, r=i // U: to_torch(a[r], device))
+    layers = [_stored(_map(blocks[i % U],
+                           lambda a, r=i // U: to_torch(a[r], device)))
               for i in range(cfg.num_layers)]
     return {
         "embed": to_torch(np_params["embed"], device),
         "final_norm": _map(np_params["final_norm"],
                            lambda a: to_torch(a, device)),
         "layers": layers,
-        "lm_head": _map(np_params["lm_head"], lambda a: to_torch(a, device)),
+        "lm_head": _stored(_map(np_params["lm_head"],
+                                lambda a: to_torch(a, device))),
     }
 
 

@@ -50,9 +50,11 @@ def test_library_path_sees_the_flags(csrc, monkeypatch):
 
 
 def test_the_real_kernels_include_the_hopper_header():
-    """flash_attention.cu includes csrc/hopper.cuh, so the header is part
-    of its key; a kernel that does not include it keeps its own."""
-    flash = build._sources((build.CSRC / "flash_attention.cu").resolve(), {})
-    assert [p.name for p in flash] == ["flash_attention.cu", "hopper.cuh"]
+    """flash_attention.cu and int8_matmul.cu include csrc/hopper.cuh, so
+    the header is part of their keys; a kernel that does not include it
+    keeps its own."""
+    for name in ("flash_attention", "int8_matmul"):
+        srcs = build._sources((build.CSRC / f"{name}.cu").resolve(), {})
+        assert [p.name for p in srcs] == [f"{name}.cu", "hopper.cuh"]
     scan = build._sources((build.CSRC / "ssm_scan.cu").resolve(), {})
     assert [p.name for p in scan] == ["ssm_scan.cu"]

@@ -16,8 +16,9 @@ head (llama31-8b, qwen3-30b-a3b).
 
 The int8 matmul is held to its plain version exactly: the int32 sums do
 not depend on their order, and the one conversion and the one multiply by
-the scales are the same on both sides. Dropping the last 128-wide K tile
-must break that equality.
+the scales are the same on both sides. Its weights are stored K-major, as
+the model stores them (`repro_torch.quant.k_major`). Dropping the last
+128-wide K tile must break that equality.
 
 The selective scan is held to its plain version by `fp32_gate <= 1`, that
 is |kernel - plain| <= 1e-5 + 1e-4 |plain| on every element of y and
@@ -44,6 +45,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.quant import k_major
 from repro_torch.serving.runner import set_matmul_precision
 
 pytestmark = pytest.mark.cuda
@@ -230,21 +232,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def _int8_inputs(gen, M, K, N):
+    """x_q (M, K), the weight (K, N) stored K-major as the model stores it
+    (`k_major`), and the scales."""
     xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                        dtype=torch.int8)
-    wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
-                       dtype=torch.int8)
+    wq = k_major(torch.randint(-127, 128, (K, N), generator=gen,
+                               device="cuda", dtype=torch.int8))
     xs = torch.rand(1, generator=gen, device="cuda") * 0.02 + 1e-3
     ws = torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 1e-3
     return xq, wq, xs, ws
 
 
-@pytest.mark.parametrize("M", [1, 8, 17, 4096])
+@pytest.mark.parametrize("M", [1, 8, 17, 64, 65, 512, 4096])
 @pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (2048, 512),
                                  (4096, 2048)])
 def test_int8_kernel_equals_plain(gen, M, K, N):
-    """Ragged M (1, 8 and 17 rows; 4096, the prefill rows) at served
-    (K, N) of llama31-8b and qwen3-30b-a3b: bit for bit."""
+    """Ragged M (1, 8, 17 and 64 rows on the decode path, 65 on the
+    prefill path; 512 and 4096, the prefill rows) at served (K, N) of
+    llama31-8b and qwen3-30b-a3b: bit for bit."""
     args = _int8_inputs(gen, M, K, N)
     n = int8_matmul_kernel.launches
     out = int8_matmul(*args)
@@ -254,19 +259,33 @@ def test_int8_kernel_equals_plain(gen, M, K, N):
     assert torch.equal(out, int8_matmul_ref(*args))
 
 
-def test_int8_kernel_ragged_k_and_n(gen):
-    """K and N that are not multiples of the tiles (K 16 past a 256 tile,
-    N 8 past a 128 tile), at both tile shapes."""
-    for M in (5, 300):
-        args = _int8_inputs(gen, M, 272, 136)
+@pytest.mark.parametrize("K,N", [(272, 136), (8192, 288)])
+def test_int8_kernel_ragged_k_and_n(gen, K, N):
+    """K and N that are not multiples of the tiles (K 16 past a 128-byte
+    k-tile, N 8 past a 64 or 128 tile; jamba's x_proj N 288) on both
+    paths."""
+    for M in (5, 64, 300):
+        args = _int8_inputs(gen, M, K, N)
         assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
 
 
-def test_int8_exact_check_rejects_dropped_k_tile(gen):
-    """The kernel run without the last 128-wide K tile, as a tile count
-    off by one would give, is not equal to the full plain product."""
-    xq, wq, xs, ws = _int8_inputs(gen, 8, 4096, 14336)
-    out = int8_matmul(xq[:, :-128].contiguous(), wq[:-128], xs, ws)
+@pytest.mark.parametrize("M,K,N", [(8, 14336, 4096), (8, 256, 8192),
+                                   (33, 2048, 4096), (64, 8192, 288)])
+def test_int8_kernel_split_k_equals_plain(gen, M, K, N):
+    """Decode shapes whose N / 64 tiles under-fill the card split K over a
+    cluster of blocks (llama31-8b's down projection, jamba's dt_proj); the
+    int32 partial sums meet before the one conversion: bit for bit."""
+    args = _int8_inputs(gen, M, K, N)
+    assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
+
+
+@pytest.mark.parametrize("M", [8, 4096])
+def test_int8_exact_check_rejects_dropped_k_tile(gen, M):
+    """The kernel run without the last 128-wide K tile (a K-major (K - 128,
+    N) weight that the wrapper takes), as a tile count off by one would
+    give, is not equal to the full plain product."""
+    xq, wq, xs, ws = _int8_inputs(gen, M, 4096, 14336)
+    out = int8_matmul(xq[:, :-128].contiguous(), k_major(wq[:-128]), xs, ws)
     ref = int8_matmul_ref(xq, wq, xs, ws)
     assert not torch.equal(out, ref)
     assert float((out != ref).float().mean()) > 0.9
@@ -279,9 +298,11 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(TypeError):
         int8_matmul(xq, wq, xs.double(), ws)
     with pytest.raises(ValueError):       # K not a multiple of 16
-        int8_matmul(xq[:, :250].contiguous(), wq[:250], xs, ws)
-    with pytest.raises(ValueError):       # not contiguous
-        int8_matmul(xq, wq.t().contiguous().t(), xs, ws)
+        int8_matmul(xq[:, :250].contiguous(), k_major(wq[:250]), xs, ws)
+    with pytest.raises(ValueError):       # a row-major (K, N) weight
+        int8_matmul(xq, wq.contiguous(), xs, ws)
+    with pytest.raises(ValueError):       # K-major rows longer than K
+        int8_matmul(xq[:, :128].contiguous(), wq[:128], xs, ws)
     with pytest.raises(ValueError):       # one operand on the CPU
         int8_matmul(xq, wq.cpu(), xs, ws)
 

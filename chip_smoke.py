@@ -8,8 +8,9 @@ Phases, each of which exits non-zero on failure:
      one process each, in parallel; ptxas's register/shared-memory lines;
      the flash library's SASS (`cuobjdump -sass`) must hold tensor-core
      (HGMMA) and TMA-load (UTMALDG) instructions, the int8 library's
-     integer tensor-core (IGMMA) and TMA-load ones, and ptxas must report
-     no spill bytes for the int8 kernels; SYNCS (mbarrier) counted;
+     integer tensor-core (IGMMA) and TMA-load ones, the paged library's
+     cp.async copies (LDGSTS), and ptxas must report no spill bytes for
+     the int8 kernels; SYNCS (mbarrier) counted;
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b. The attention
      kernels in bf16 with |kernel - plain| <= 1e-3 + 2**-7 |plain| on every
@@ -22,10 +23,15 @@ Phases, each of which exits non-zero on failure:
      the last key tile or the last 128-wide K tile dropped, the scan's
      decode step with h0 read as zeros, or its prefill without the last 32
      steps; the int8 fault must change more than 90% of the outputs). The
-     int8 weights are stored K-major, as the model stores them. Then the
+     int8 weights are stored K-major, as the model stores them. A paged
+     row with seq_len 0 must be the mean of V over its block-table row
+     (within `bf16_gate`), also at a served decode mix whose idle slots
+     have rows of 0s. Then the
      kernel, the plain version and the yardstick PyTorch call timed on the
      device (CUDA graphs of repeated calls, timed with CUDA events), each
-     beside its bound; flash also at a served prefill call's kv_len, half
+     beside its bound; paged attention also at a served decode step's
+     contexts (8 slots of 520-768 tokens), with and without slots 0-3
+     idle; flash also at a served prefill call's kv_len, half
      the slots at 512 and half at 0, with its TFLOP/s, share of its bound
      and ratio to SDPA; the int8 GEMM with its TOP/s and `torch._int_mm`
      on the K-major weight and on a row-major copy;
@@ -72,6 +78,9 @@ EXP_RATE = 132 * 16 * 1.98e9
 # llama31-8b's 32/8 heads and qwen3-30b-a3b's 32/4
 B, HQ, D, PAGE, MAXP = 8, 32, 128, 16, 48
 HKV = {"llama31-8b": 8, "qwen3-30b-a3b": 4}
+# a served decode step's contexts: 8 slots of 512 prompt tokens, 8-256
+# tokens into their answers
+SERVED_LENS = [520, 555, 591, 626, 662, 697, 733, 768]
 # (M, K, N) of the int8 products on the main paths: 8 rows in decode and
 # for the prefill lm_head, 8 x 512 for the other prefill projections (512
 # for a call that prefills one prompt)
@@ -132,7 +141,8 @@ def sass_counts(lib_path: str) -> dict:
         if words:
             ops.append(words[0])
     return {k: sum(o.startswith(k) for o in ops)
-            for k in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS")}
+            for k in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS",
+                      "LDGSTS")}
 
 
 def device_ms(fn, arg_sets, per_graph=20, replays=5) -> float:
@@ -192,7 +202,31 @@ def hold(name, pairs, faulty, fault_ref, gate_fn=None):
     return err, gate, fault
 
 
+def paged_bound(q, bt, lens, hkv):
+    """The least time of a paged-attention call: K and V of every valid
+    position once, and for a seq_len-0 row V of each distinct page its row
+    gathers once (it reads no K: its scores are all 0); q, the output, the
+    block tables and the lengths; 4 FLOPs a valid position per query head
+    and dimension, 2 for an idle row's positions."""
+    n_tok = int(lens.sum())
+    idle = (lens == 0).nonzero().flatten()
+    idle_pages = int(torch.unique(bt[idle]).numel()) if len(idle) else 0
+    nbytes = ((2 * n_tok + idle_pages * PAGE) * hkv * D * 2
+              + 2 * q.numel() * 2 + bt.numel() * 4 + lens.numel() * 4)
+    flops = (4 * n_tok + 2 * len(idle) * bt.shape[1] * PAGE) * HQ * D
+    return bound(nbytes, flops)
+
+
+def mean_v(vp, bt_row):
+    """What a seq_len-0 row gets: the mean of V over every position its
+    block-table row gathers, fp32, for each query head."""
+    _, _, hkv, d = vp.shape
+    m = vp[bt_row.long()].float().reshape(-1, hkv, d).mean(0)
+    return m.repeat_interleave(HQ // hkv, dim=0)
+
+
 def check_paged(gen, arch):
+    from repro_torch.kernels import bf16_gate
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_kernel
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -208,13 +242,25 @@ def check_paged(gen, arch):
               .bfloat16(),
               torch.randn(P, PAGE, hkv, D, generator=gen, device=dev)
               .bfloat16()) for _ in range(4)]
+    # a served decode step: 8 slots of 520-768 tokens, and the same with
+    # slots 0-3 idle as the engine leaves them (seq_len 0, rows of 0s)
+    served = torch.tensor(SERVED_LENS, dtype=torch.int32, device=dev)
+    idle_lens = served.clone()
+    idle_lens[:4] = 0
+    idle_bt = bt.clone()
+    idle_bt[:4] = 0
+    cases = [(bt, lens), (bt, served), (idle_bt, idle_lens)]
     pairs = []
     for kp, vp in pools[:2]:
-        out = paged_attention_kernel(q, kp, vp, bt, lens)
-        torch.cuda.synchronize()
-        pairs.append((out, paged_attention_ref(q, kp, vp, bt, lens)))
-        if not torch.all(out[0] == 0):
-            fail("paged attention: seq_len 0 did not give 0")
+        for t, n in cases:
+            out = paged_attention_kernel(q, kp, vp, t, n)
+            torch.cuda.synchronize()
+            pairs.append((out, paged_attention_ref(q, kp, vp, t, n)))
+            for b in (n == 0).nonzero().flatten().tolist():
+                g = bf16_gate(out[b], mean_v(vp, t[b]))
+                if not g <= 1:
+                    fail(f"paged attention ({arch}): seq_len 0 in row {b} is "
+                         f"not the mean of V over its row: gate {g}")
     # planted fault: the 768-token row without its last page, as a loop
     # bound off by one page would give
     short = lens.clone()
@@ -222,19 +268,27 @@ def check_paged(gen, arch):
     kp, vp = pools[1]
     err, gate, fault = hold(f"paged attention ({arch})", pairs,
                             paged_attention_kernel(q, kp, vp, bt, short),
-                            pairs[1][1])
+                            pairs[len(cases)][1])
+    b_ms, b_by = paged_bound(q, bt, lens, hkv)
+    mixes = {}
+    for name, (t, n) in (("served", cases[1]), ("served, slots 0-3 idle",
+                                                 cases[2])):
+        m_args = [(q, kp, vp, t, n) for kp, vp in pools]
+        m_ms = device_ms(paged_attention_kernel, m_args)
+        m_b_ms, m_b_by = paged_bound(q, t, n, hkv)
+        mixes[name] = {"seq_lens": n.tolist(), "ms": m_ms,
+                       "plain_ms": device_ms(paged_attention_ref, m_args),
+                       "bound_ms": m_b_ms, "bound_by": m_b_by,
+                       "share_of_bound": m_b_ms / m_ms}
     args = [(q, kp, vp, bt, lens) for kp, vp in pools]
-    n_tok = int(lens.sum())
-    nbytes = (2 * n_tok * hkv * D * 2 + 2 * q.numel() * 2 + bt.numel() * 4
-              + lens.numel() * 4)
-    flops = 4 * n_tok * HQ * D
-    b_ms, b_by = bound(nbytes, flops)
+    ms = device_ms(paged_attention_kernel, args)
     return {
         "max_abs_err": err, "gate": gate, "fault": fault,
         "fault_desc": "the 768-token row's last page dropped",
-        "ms": device_ms(paged_attention_kernel, args),
+        "ms": ms,
         "plain_ms": device_ms(paged_attention_ref, args),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "share_of_bound": b_ms / ms, "served_mixes": mixes,
         "shape": f"{arch}: B={B} Hq={HQ} Hkv={hkv} D={D} page={PAGE} "
                  f"max_pages={MAXP} seq_lens={lens.tolist()}",
     }
@@ -717,6 +771,10 @@ def main():
     if not (sass["IGMMA"] and sass["UTMALDG"]):
         fail(f"int8_matmul's SASS holds no integer wgmma or no TMA load: "
              f"{sass}")
+    sass = sass_counts(str(build.library_path("paged_attention")))
+    print(f"build: paged_attention SASS: {sass}", flush=True)
+    if not sass["LDGSTS"]:
+        fail(f"paged_attention's SASS holds no cp.async copy: {sass}")
     spills = [line.strip() for line in logs["int8_matmul"].splitlines()
               if "spill" in line and not line.strip().startswith(
                   "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
@@ -761,6 +819,12 @@ def main():
             if "tops" in v:
                 print(f"kernel {name} [{v['shape']}]: {v['tops']:.1f} "
                       f"TOP/s, {v['x_bound']:.3f} x its bound", flush=True)
+            for mix, m in v.get("served_mixes", {}).items():
+                print(f"kernel {name} [{v['shape']}]: at the {mix} decode "
+                      f"mix seq_lens={m['seq_lens']}: ms={m['ms']:.4f} "
+                      f"plain_ms={m['plain_ms']:.4f} bound_ms="
+                      f"{m['bound_ms']:.4f} ({m['bound_by']}), "
+                      f"{m['share_of_bound']:.3f} of its bound", flush=True)
             if "served_mix" in v:
                 m = v["served_mix"]
                 print(f"kernel {name} [{v['shape']}]: {v['tflops']:.1f} "
@@ -820,11 +884,15 @@ def main():
                                               "x_library")})
             row["served_mix_share_of_bound"] = \
                 vs[0]["served_mix"]["share_of_bound"]
+        if "served_mixes" in vs[0]:
+            row["share_of_bound"] = vs[0]["share_of_bound"]
+            row["served_mixes"] = vs[0]["served_mixes"]
         row["launches_by_path"] = by_path
         row["variants"] = [{k: v[k] for k in ("shape",) + keys
                             + ("bound_term", "bound_terms_ms", "tflops",
                                "share_of_bound", "x_library", "library_gate",
-                               "served_mix", "tops", "x_bound",
+                               "served_mix", "served_mixes", "tops",
+                               "x_bound",
                                "library_row_major_ms")
                             if k in v}
                            for v in vs]

@@ -5,173 +5,398 @@
 // sequence attends over its KV cache, which lives in a pool of fixed-size
 // pages addressed through a per-sequence block table. Query head h reads
 // KV head h / G. fp32 online softmax scaled by 1/sqrt(D); positions at or
-// past seq_len are masked, and a sequence with seq_len 0 gets 0.
+// past seq_len (clipped to max_pages * page) are masked. A sequence with
+// seq_len 0 (an idle decode slot) gets the mean of V over all
+// max_pages * page positions its block-table row gathers, as the
+// reference's served decode (`paged_attention_ref`) gives it: the kernel
+// runs the same softmax with every score 0 over the whole row, and reads
+// no K for it.
 //
 // What bounds it on this card: device-memory bytes. Every valid position's
 // K and V row (2 * D * 2 bytes per KV head) is read once and used for G
 // dot products and G multiply-adds per element, 4 * G * D FLOPs on
 // 4 * D bytes: G (= 4 for llama31-8b, 8 for qwen3-30b-a3b) FLOPs per
 // byte, far under the ~295 FLOP/byte where the tensor cores would bound.
+// At the served shapes a call moves 10-25 MB, 3-7 microseconds at 3.35
+// TB/s, so what decides its time is how many bytes each SM keeps in
+// flight and how long each block's chain of dependent steps is.
 //
-// What the design does about it: one block per (sequence, KV head) packs
-// the G query heads that share that KV head, so each K/V row is read from
-// device memory once, not G times. The block reads only the pages below
-// ceil(seq_len / page) through its own block-table row (what the TPU did
-// with scalar prefetch). Each warp takes every NW-th token; a lane holds
-// D/32 contiguous elements of q (fp32, pre-scaled), K and V, so a row is
-// one coalesced warp-wide read and a dot product is a warp shuffle
-// reduction. Each warp keeps its own running max, denominator and fp32
-// accumulator per query head; the warps' partial softmaxes are combined
-// exactly through shared memory at the end. Not done yet: with B*Hkv = 64
-// blocks at the served shape, 132 SMs are under-filled; splitting the
-// pages of one sequence over several blocks (split-K) is the remedy.
+// What the design does about it:
+//  - Fill the card: the pages of one (sequence, KV head) are split over a
+//    cluster of `split` blocks (a power of 2 up to 8, the portable cluster
+//    size), each taking a fixed run of `per` 16-key tiles of the row.
+//    Both come from the shapes alone, never from seq_lens, so a CUDA graph
+//    replays the launch, and a block's page ids load at once beside
+//    seq_len. At the served shape (B 8, Hkv 8) that is 512 blocks of 4
+//    warps on 132 SMs; registers are capped at 96 so that 5 blocks fit an
+//    SM, because at 4 only 62 clusters of 8 fit the card at once and
+//    llama31-8b's 64 ran in two waves.
+//  - Keep bytes in flight: every thread issues 16-byte cp.async copies of
+//    K and V rows (256 bytes a key per KV head, rows Hkv * D * 2 bytes
+//    apart in the pool, found through the block table) into a ring of NS
+//    tiles, NS - 1 tiles ahead of use.
+//  - One rescale per tile (a page at page 16), not per key, and one block
+//    barrier per tile: every warp computes the tile's 16 x G scores itself
+//    with 8 mma.sync m16n8k16 (the bf16 q and K, products summed in fp32;
+//    no rounding that the plain version does not do), takes the tile's max,
+//    exponentials and sum in registers with 3 shuffles each, and rescales
+//    its accumulators once; thread t owns dimension t of all G heads and
+//    adds the tile's 16 keys of V in fp32 FMAs: P is never rounded to bf16.
+//  - Combine without a second round trip: after its tiles a block sends,
+//    through distributed shared memory, each other block the partial sums
+//    of the D / split dimensions that block combines, and its running max
+//    and sum to all; after one cluster barrier every block combines its
+//    own dimensions exactly, as
+//    `repro.parallel.collectives.combine_partial_softmax` does. A block
+//    with no tiles still arrives at the barriers and sends m = -1e30,
+//    l = 0, acc = 0, which the combine weights as 0.
+#include <algorithm>
 #include <cmath>
+#include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NW = 4;             // warps per block
+constexpr int D = 128;            // head_dim, one thread per dimension
+constexpr int THREADS = D;        // 4 warps
+constexpr int NWARP = THREADS / 32;
+constexpr int TK = 16;            // keys a tile (one mma row block):
+                                  // one rescale each
+constexpr int ROW = D + 8;        // a key's row in shared memory, padded
+                                  // so ldmatrix's 8 rows hit 32 banks
+constexpr int NS = 4;             // tiles in the ring
+constexpr int MAX_SPLIT = 8;      // blocks a cluster
+constexpr int SM_COUNT = 132;
+constexpr int BT_CAP = 256;       // page ids a block keeps (host-checked)
 constexpr float NEG_INF = -1e30f;
+static_assert(TK == 16 && THREADS == 128,
+              "a tile is one mma row block; a thread copies two of its keys");
 
-template <int E>
-__device__ inline void load_row(const __nv_bfloat16* p, float (&out)[E]) {
-#pragma unroll
-  for (int i = 0; i < E; i += 2) {
-    float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(p + i));
-    out[i] = f.x;
-    out[i + 1] = f.y;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// 16 bytes from global to shared memory; zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-template <int D, int G>
-__global__ void __launch_bounds__(NW * 32)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the cluster barrier in two halves: every thread of every block arrives,
+// then waits; `release`/`acquire` order the distributed shared-memory
+// stores before it against the loads after it
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::);
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::);
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::);
+}
+
+// A (16 keys x 16 of D, row-major in shared memory) for mma m16n8k16
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b: 16 keys x 8 heads, bf16 products summed in fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Shape {
+  int Hkv, page, max_pages;
+  int split, per;                 // blocks a row, tiles a block at most
+  float scale;
+};
+
+template <int G>
+__global__ void __launch_bounds__(THREADS, 5)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k_pool,
                        const __nv_bfloat16* __restrict__ v_pool,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ seq_lens,
-                       __nv_bfloat16* __restrict__ out,
-                       int Hkv, int page, int max_pages, float scale) {
-  constexpr int E = D / 32;       // elements per lane
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int Hq = Hkv * G;
+                       __nv_bfloat16* __restrict__ out, const Shape sh) {
+  __shared__ __align__(16) __nv_bfloat16 ring[NS][2][TK][ROW];  // K, V
+  __shared__ __align__(16) float s_p[NWARP][G][TK];
+  __shared__ float s_alpha[NWARP][G];
+  // what the cluster's blocks send this one: their partial sums for the
+  // D / split dimensions it combines, and their m and l
+  __shared__ float recv[G * D];
+  __shared__ float recv_m[MAX_SPLIT][G], recv_l[MAX_SPLIT][G];
+  __shared__ int s_bt[BT_CAP];
 
-  float qv[G][E];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load_row<E>(q + ((size_t)b * Hq + h * G + g) * D + lane * E, qv[g]);
-#pragma unroll
-    for (int i = 0; i < E; ++i) qv[g][i] *= scale;
-  }
+  cluster_arrive_relaxed();       // matched before the first remote store
+  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int Hq = sh.Hkv * G;
 
-  float m[G], l[G], acc[G][E];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < E; ++i) acc[g][i] = 0.f;
-  }
+  // this block's tiles: [t0, t0 + per) of the row, from the shapes alone,
+  // so its page ids load beside seq_len; a seq_len-0 row takes every
+  // position its block-table row gathers
+  const int full = sh.max_pages * sh.page;
+  const int t0 = rank * sh.per;
+  const int pg0 = t0 * TK / sh.page;
+  const int n_pg =
+      min((t0 + sh.per) * TK / sh.page + 1, sh.max_pages) - pg0;
+  const int* bt = block_tables + (size_t)b * sh.max_pages;
+  for (int i = t; i < n_pg; i += THREADS) s_bt[i] = bt[pg0 + i];
+  const int sl = seq_lens[b];
+  const bool idle = sl <= 0;
+  const int len = idle ? full : min(sl, full);
+  const int cnt = max(0, min(sh.per, (len + TK - 1) / TK - t0));
 
-  const int len = min(seq_lens[b], max_pages * page);
-  const int* bt = block_tables + (size_t)b * max_pages;
-  for (int t = warp; t < len; t += NW) {
-    const size_t row =
-        ((size_t)bt[t / page] * page + t % page) * Hkv + h;
-    float kv[E], vv[E];
-    load_row<E>(k_pool + row * D + lane * E, kv);
-    load_row<E>(v_pool + row * D + lane * E, vv);
+  // q as the mma's B operand (16 of D x 8 heads, "col" layout): lane l
+  // holds head l / 4, dimensions 2 (l % 4) + {0, 1, 8, 9} of each 16
+  const int gq = lane / 4, kq = 2 * (lane % 4);
+  uint32_t qb[D / 16][2];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < E; ++i) s += qv[g][i] * kv[i];
-      s = warp_sum(s);
-      const float m_new = fmaxf(m[g], s);
-      const float alpha = __expf(m[g] - m_new);
-      const float p = __expf(s - m_new);
-      l[g] = l[g] * alpha + p;
-#pragma unroll
-      for (int i = 0; i < E; ++i) acc[g][i] = acc[g][i] * alpha + p * vv[i];
-      m[g] = m_new;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qb[kk][0] = qb[kk][1] = 0;
+    if (gq < G && !idle) {
+      const __nv_bfloat16* qr = q + ((size_t)b * Hq + h * G + gq) * D;
+      qb[kk][0] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + kq);
+      qb[kk][1] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + kq + 8);
     }
   }
+  __syncthreads();                // s_bt
 
-  // combine the NW warps' partial softmaxes exactly
-  __shared__ float sm_m[NW][G], sm_l[NW][G];
-  __shared__ float sm_acc[NW][G][D];
+  // thread t copies keys t / 16 and t / 16 + 8, 16-byte chunk t % 16, of
+  // K (not for an idle row: its scores are all 0) and V
+  const size_t row_stride = (size_t)sh.Hkv * D;
+  const int c16 = t % 16;
+  auto issue = [&](int i) {
+    if (i < cnt) {
+      const int st = i % NS;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+      for (int u = 0; u < 2; ++u) {
+        const int j = t / 16 + 8 * u, pos = (t0 + i) * TK + j;
+        const bool valid = pos < len;
+        const int pp = valid ? pos : t0 * TK;
+        const int pi = pp / sh.page;
+        const size_t off =
+            ((size_t)s_bt[pi - pg0] * sh.page + (pp - pi * sh.page)) *
+                row_stride + (size_t)h * D + c16 * 8;
+        if (!idle) cp_async16(&ring[st][0][j][c16 * 8], k_pool + off, valid);
+        cp_async16(&ring[st][1][j][c16 * 8], v_pool + off, valid);
+      }
+    }
+    cp_async_commit();            // empty groups keep the count uniform
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue(i);
+
+  // each warp scores the whole tile itself (the mma is cheap) and keeps
+  // its own copy of the running m and l of the two heads its lane holds:
+  // heads 2 (l % 4) and 2 (l % 4) + 1, keys l / 4 and l / 4 + 8
+  const int g0 = kq;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+
+  for (int i = 0; i < cnt; ++i) {
+    const int st = i % NS;
+    cp_async_wait<NS - 2>();
+    __syncthreads();              // tile i landed; tile i - 1 is done
+    issue(i + NS - 1);
+
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    if (!idle) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, &ring[st][0][lane % 16][kk * 16 + (lane / 16) * 8]);
+        mma_bf16(c, a, qb[kk][0], qb[kk][1]);
+      }
+    }
+    // the tile's softmax: c[e] is key l / 4 + 8 (e / 2), head g0 + e % 2
+    const int key = (t0 + i) * TK + lane / 4;
+    const bool valid[2] = {key < len, key + 8 < len};
+    float p[4], alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float s0 = valid[0] ? c[e] * sh.scale : NEG_INF;
+      const float s1 = valid[1] ? c[e + 2] * sh.scale : NEG_INF;
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[e], mx);
+      p[e] = valid[0] ? __expf(s0 - m_new) : 0.f;
+      p[e + 2] = valid[1] ? __expf(s1 - m_new) : 0.f;
+      float sum = p[e] + p[e + 2];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      alpha[e] = __expf(m[e] - m_new);
+      l[e] = l[e] * alpha[e] + sum;
+      m[e] = m_new;
     }
 #pragma unroll
-    for (int i = 0; i < E; ++i) sm_acc[warp][g][lane * E + i] = acc[g][i];
+    for (int e = 0; e < 2; ++e) {
+      if (g0 + e < G) {
+        s_p[warp][g0 + e][lane / 4] = p[e];
+        s_p[warp][g0 + e][lane / 4 + 8] = p[e + 2];
+        if (lane < 4) s_alpha[warp][g0 + e] = alpha[e];
+      }
+    }
+    __syncwarp();
+
+    // P V in fp32: thread t owns dimension t of every head
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] *= s_alpha[warp][g];
+#pragma unroll
+    for (int k = 0; k < TK; k += 4) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = __bfloat162float(ring[st][1][k + e][t]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 pk = *reinterpret_cast<const float4*>(&s_p[warp][g][k]);
+        acc[g] = fmaf(pk.x, v[0], acc[g]);
+        acc[g] = fmaf(pk.y, v[1], acc[g]);
+        acc[g] = fmaf(pk.z, v[2], acc[g]);
+        acc[g] = fmaf(pk.w, v[3], acc[g]);
+      }
+    }
+    __syncwarp();                 // s_p is rewritten by the next tile
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
-    const int g = idx / D, d = idx % D;
+  cp_async_wait<0>();
+
+  // the split: block r combines dimensions [r, r + 1) * D / split of every
+  // head; each block sends it those partial sums, and its m and l to all
+  cg::cluster_group cluster = cg::this_cluster();
+  const int dn = D / sh.split;
+  cluster_wait();                 // every block of the cluster has started
+  {
+    float* dst = cluster.map_shared_rank(recv, t / dn);
+#pragma unroll
+    for (int g = 0; g < G; ++g) dst[(rank * G + g) * dn + t % dn] = acc[g];
+  }
+  if (warp == 0 && lane < 4) {
+    for (int r = 0; r < sh.split; ++r) {
+      float* rm = cluster.map_shared_rank(&recv_m[rank][0], r);
+      float* rl = cluster.map_shared_rank(&recv_l[rank][0], r);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (g0 + e < G) {
+          rm[g0 + e] = m[e];
+          rl[g0 + e] = l[e];
+        }
+      }
+    }
+  }
+  cluster_arrive_release();
+  cluster_wait();                 // every block's partials are here
+  for (int idx = t; idx < G * dn; idx += THREADS) {
+    const int g = idx / dn, dd = idx % dn;
     float mx = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = __expf(sm_m[w][g] - mx);
-      den += sm_l[w][g] * c;
-      num += sm_acc[w][g][d] * c;
+    for (int r = 0; r < sh.split; ++r) mx = fmaxf(mx, recv_m[r][g]);
+    float num = 0.f, den = 0.f;
+    for (int r = 0; r < sh.split; ++r) {
+      const float w = __expf(recv_m[r][g] - mx);
+      den += recv_l[r][g] * w;
+      num += recv[(r * G + g) * dn + dd] * w;
     }
-    out[((size_t)b * Hq + h * G + g) * D + d] =
-        __float2bfloat16(num / fmaxf(den, 1e-30f));
+    out[((size_t)b * Hq + h * G + g) * D + rank * dn + dd] =
+        __float2bfloat16(den > 0.f ? num / den : 0.f);
   }
 }
 
-template <int D, int G>
+template <int G>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* block_tables, const void* seq_lens, void* out,
                    int B, int Hkv, int page, int max_pages,
                    cudaStream_t stream) {
-  paged_attention_kernel<D, G><<<dim3(B, Hkv), NW * 32, 0, stream>>>(
+  // split the row's tiles over a power of 2 of blocks, up to 8, fewer
+  // where the row has fewer tiles or the blocks would be more than 8 an
+  // SM; from the shapes alone
+  const int tiles = (max_pages * page + TK - 1) / TK;
+  int split = 1;
+  while (split * 2 <= std::min(MAX_SPLIT, tiles) &&
+         (long)B * Hkv * split * 2 <= 8L * SM_COUNT)
+    split *= 2;
+  const int per = (tiles + split - 1) / split;
+  if (per * TK / page + 2 > BT_CAP) return cudaErrorInvalidValue;
+  const Shape sh{Hkv, page, max_pages, split, per, 1.0f / sqrtf((float)D)};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, Hkv, B);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, paged_attention_kernel<G>,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
-      static_cast<__nv_bfloat16*>(out), Hkv, page, max_pages,
-      1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+      static_cast<__nv_bfloat16*>(out), sh);
+  return e ? e : cudaGetLastError();
 }
 
 }  // namespace
 
 // Instantiated for what the registered configs use: head_dim 128 with 4
-// query heads per KV head (llama31-8b) or 8 (qwen3-30b-a3b). A config that
-// needs another (D, G) adds its instantiation here and in the wrapper's
-// list.
+// query heads per KV head (llama31-8b, jamba-v0.1-52b) or 8
+// (qwen3-30b-a3b). A config that needs another (D, G) adds its
+// instantiation here and in the wrapper's list. q, the pools and out
+// 16-byte aligned (the rows are read 16 bytes at a time).
 extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
                                     const void* v_pool,
                                     const void* block_tables,
                                     const void* seq_lens, void* out, int B,
-                                    int Hq, int Hkv, int D, int page,
+                                    int Hq, int Hkv, int D_, int page,
                                     int max_pages, void* stream) {
-  if (Hkv <= 0 || D != 128) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || D_ != D || page <= 0 || max_pages <= 0)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k_pool) % 16 ||
+      reinterpret_cast<uintptr_t>(v_pool) % 16)
+    return cudaErrorMisalignedAddress;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hq == 4 * Hkv)
-    return launch<128, 4>(q, k_pool, v_pool, block_tables, seq_lens, out, B,
-                          Hkv, page, max_pages, s);
+    return launch<4>(q, k_pool, v_pool, block_tables, seq_lens, out, B, Hkv,
+                     page, max_pages, s);
   if (Hq == 8 * Hkv)
-    return launch<128, 8>(q, k_pool, v_pool, block_tables, seq_lens, out, B,
-                          Hkv, page, max_pages, s);
+    return launch<8>(q, k_pool, v_pool, block_tables, seq_lens, out, B, Hkv,
+                     page, max_pages, s);
   return cudaErrorInvalidValue;
 }
 

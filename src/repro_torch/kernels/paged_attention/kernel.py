@@ -32,8 +32,10 @@ def _lib():
 def paged_attention_kernel(q, k_pool, v_pool, block_tables, seq_lens
                            ) -> torch.Tensor:
     """q: (B, Hq, D) bf16; pools: (P, page, Hkv, D) bf16; block_tables:
-    (B, max_pages) int32; seq_lens: (B,) int32. All contiguous on one card.
-    Returns (B, Hq, D) bf16."""
+    (B, max_pages) int32; seq_lens: (B,) int32. All contiguous on one card,
+    q and the pools 16-byte aligned. Returns (B, Hq, D) bf16; a row with
+    seq_len 0 gets the mean of V over every position its block-table row
+    gathers, as `ref.paged_attention_ref` gives it."""
     B, Hq, D = q.shape
     P, page, Hkv, Dk = k_pool.shape
     max_pages = block_tables.shape[1]
@@ -52,6 +54,12 @@ def paged_attention_kernel(q, k_pool, v_pool, block_tables, seq_lens
     if v_pool.shape != k_pool.shape or Dk != D or Hq % Hkv or \
             block_tables.shape[0] != B or seq_lens.shape != (B,):
         raise ValueError("paged_attention_kernel: inconsistent shapes")
+    if max_pages < 1:
+        raise ValueError("paged_attention_kernel: a block table needs at "
+                         "least one page")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_attention_kernel: q and the pools must be "
+                         "16-byte aligned")
     if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
         raise ValueError(f"paged_attention_kernel: head_dim {D} / group "
                          f"{Hq // Hkv} not compiled (have {HEAD_DIMS} / "

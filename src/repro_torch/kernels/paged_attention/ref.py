@@ -1,10 +1,16 @@
 """Plain PyTorch paged attention: gather the pages, then dense decode.
 
-It computes what the Pallas kernel `repro.kernels.paged_attention.kernel`
-computes, in fp32 throughout: scores scaled by 1/sqrt(D), positions at or
-past `seq_len` masked, the output divided by max(l, 1e-30). So a slot with
-`seq_len == 0` gets 0, as from the kernel. (The reference's jnp oracle
-returns the mean of V there instead; the engine discards those rows.)
+It computes what the reference's served decode computes
+(`repro.kernels.paged_attention.ref.paged_attention_ref`, which
+`repro.serving.runner` runs), in fp32 throughout: scores scaled by
+1/sqrt(D), positions at or past `seq_len` masked to a finite -1e30, then a
+softmax. So a slot with `seq_len == 0` (an idle decode slot) gets the mean
+of V over all `max_pages * page` positions that its block-table row
+gathers: every score is the same -1e30. The Pallas kernel
+`repro.kernels.paged_attention.kernel` differs from the reference's served
+path at exactly this point: it gives such a slot 0. The port follows the
+served path, because an idle row's value flows on into the MoE capacity
+queues that it shares with real tokens.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens
              < seq_lens.to(q.device)[:, None])[:, None, None]  # (B,1,1,S)
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m) * valid
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v) / torch.clamp(l, min=1e-30)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v) / l      # l >= 1
     return o.reshape(B, Hq, D).to(q.dtype)

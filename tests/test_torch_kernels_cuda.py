@@ -9,10 +9,11 @@ conftest does, so skip it):
 Without a card every test here skips. The gate is `bf16_gate <= 1`, that
 is |kernel - plain| <= 1e-3 + 2**-7 |plain| on every element: both sides
 compute in fp32 and round once to bf16, so they may differ by one bf16
-step of the result. The planted-fault tests show that it rejects a kernel
-that drops one page or one key tile. Shapes use head_dim 128, the one the
-kernels are compiled for, and paged attention 4 or 8 query heads per KV
-head (llama31-8b, qwen3-30b-a3b).
+step of the result. A paged-attention row with seq_len 0 gets the mean of
+V over every position its block-table row gathers. The planted-fault
+tests show that it rejects a kernel that drops one page or one key tile.
+Shapes use head_dim 128, the one the kernels are compiled for, and paged
+attention 4 or 8 query heads per KV head (llama31-8b, qwen3-30b-a3b).
 
 The int8 matmul is held to its plain version exactly: the int32 sums do
 not depend on their order, and the one conversion and the one multiply by
@@ -90,8 +91,68 @@ def test_paged_kernel_matches_plain(gen, B, Hq, Hkv, D, page, maxp):
     torch.cuda.synchronize()
     assert paged_attention_kernel.launches == n + 1
     ref = paged_attention_ref(q, kp, vp, bt, lens)
-    assert torch.all(out[0] == 0)
+    assert bf16_gate(out[0], _mean_v(vp, bt[0], Hq)) <= 1
     assert bf16_gate(out, ref) <= 1
+
+
+def _mean_v(vp, bt_row, Hq):
+    """What a seq_len-0 row gets: the mean of V over every position its
+    block-table row gathers, in fp32, for each of the Hq query heads."""
+    P, page, Hkv, D = vp.shape
+    m = vp[bt_row.long()].float().reshape(-1, Hkv, D).mean(0)
+    return m.repeat_interleave(Hq // Hkv, dim=0)
+
+
+# (B 8, Hq 32, page 16, max_pages 48): with 8 splits a 768-token row gives
+# each split 6 pages; 128 tokens give each split one page, ending on its
+# last position; 96 leave two splits empty, 16 and 5 all splits but one;
+# and 0, 1, 17, 767
+EDGE_LENS = [1, 128, 16, 768, 0, 96, 17, 767]
+# a served decode step: 8 slots with contexts of 520-768 tokens
+SERVED_LENS = [520, 555, 591, 626, 662, 697, 733, 768]
+
+
+@pytest.mark.parametrize("Hkv", [8, 4])
+@pytest.mark.parametrize("lens,idle", [
+    (EDGE_LENS, 0), ([5] + EDGE_LENS[1:], 0), (SERVED_LENS, 0),
+    ([0] * 4 + SERVED_LENS[4:], 4)])
+def test_paged_kernel_at_edges_and_served_mix(gen, Hkv, lens, idle):
+    """The served shape at edge lengths and at a served decode mix; with
+    `idle`, the first slots are idle as the engine leaves them: seq_len 0
+    and a block-table row of 0s, so they read page 0 only."""
+    q, kp, vp, bt = _paged_inputs(gen, 8, 32, Hkv, 128, 16, 48)
+    bt[:idle] = 0
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = paged_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert bf16_gate(out, paged_attention_ref(q, kp, vp, bt, lens)) <= 1
+    for b in range(8):
+        if lens[b] == 0:
+            assert bf16_gate(out[b], _mean_v(vp, bt[b], 32)) <= 1
+
+
+def test_paged_kernel_replays_in_a_cuda_graph(gen):
+    """Captured once, replayed after seq_lens (and q) changed in place:
+    the grid depends on the shapes only, so the replay follows the new
+    lengths, including a row that becomes idle and one that grows."""
+    q, kp, vp, bt = _paged_inputs(gen, 8, 32, 8, 128, 16, 48)
+    lens = torch.tensor(SERVED_LENS, dtype=torch.int32, device="cuda")
+    run = lambda: paged_attention(q, kp, vp, bt, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    q.copy_(_randn(gen, *q.shape))
+    lens.copy_(torch.tensor([0, 1, 16, 17, 256, 512, 700, 768],
+                            dtype=torch.int32))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, run())
+    assert bf16_gate(out, paged_attention_ref(q, kp, vp, bt, lens)) <= 1
 
 
 @pytest.mark.parametrize("Hkv", [8, 4])
@@ -229,6 +290,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         paged_attention(_randn(gen, 1, 4, 128), kp, kp, bt.long(), lens)
     with pytest.raises(ValueError):       # 2 query heads per KV head
         paged_attention(_randn(gen, 1, 2, 128), kp, kp, bt, lens)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention(_misaligned(_randn(gen, 1, 4, 128)), kp, kp, bt, lens)
 
 
 def _int8_inputs(gen, M, K, N):

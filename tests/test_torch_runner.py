@@ -11,6 +11,8 @@ group, padded rows and inactive slots included, so the reference's dropped
 tokens depend on them; and a Mamba layer's prefill runs over the padded
 prompt, so the state a slot carries into decode has seen its pad tokens.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,35 +47,46 @@ def _bf16_weights(tree, name=""):
     return tree
 
 
-def _setup(dtype, arch="llama31-8b", quant="bf16"):
+def _setup(dtype, arch="llama31-8b", quant="bf16", moe=None):
     """Reference params (`quant` int8: f32 params whose weight matrices
     are cast to bf16 and quantized, so everything but the int8 products
-    runs in f32) and their conversion for the port."""
+    runs in f32) and their conversion for the port. `moe`: fields of the
+    MoE config to replace on both sides."""
     jcfg = jax_reduced(arch, vocab=1024)
     tcfg = reduced(arch, vocab=1024)
+    if moe:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
+                                                                 **moe))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe,
+                                                                 **moe))
     jp = jax_init_params(jax.random.PRNGKey(7), jcfg, dtype=jnp.dtype(dtype))
     if quant != "bf16":
         jp = jquantize_tree(_bf16_weights(jp), quant)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
-    bt = np.arange(1, 1 + B * MAXP, dtype=np.int32).reshape(B, MAXP)
-    return jcfg, tcfg, jp, tp, bt
+    return jcfg, tcfg, jp, tp
 
 
 class _Pair:
     """Drives the JAX and the port step functions side by side."""
 
-    def __init__(self, dtype, arch="llama31-8b", quant="bf16"):
-        self.jcfg, self.tcfg, self.jp, self.tp, bt = _setup(dtype, arch,
-                                                            quant)
+    def __init__(self, dtype, arch="llama31-8b", quant="bf16", moe=None,
+                 bt=None, num_pages=NUM_PAGES):
+        """`bt`: the block tables, (batch, max_pages); by default slot b
+        owns pages 1 + b * MAXP onwards."""
+        self.jcfg, self.tcfg, self.jp, self.tp = _setup(dtype, arch, quant,
+                                                        moe)
+        if bt is None:
+            bt = np.arange(1, 1 + B * MAXP, dtype=np.int32).reshape(B, MAXP)
+        nb = bt.shape[0]
         self.jpre, self.jdec = jrunner.make_step_fns(self.jcfg, PAGE,
                                                      qcfg=JBY_NAME[quant])
         self.tpre, self.tdec = trunner.make_step_fns(self.tcfg, PAGE,
                                                      qcfg=BY_NAME[quant])
-        self.jpools = jrunner.init_pools(self.jcfg, NUM_PAGES, PAGE, B)
-        self.tpools = trunner.init_pools(self.tcfg, NUM_PAGES, PAGE, B,
+        self.jpools = jrunner.init_pools(self.jcfg, num_pages, PAGE, nb)
+        self.tpools = trunner.init_pools(self.tcfg, num_pages, PAGE, nb,
                                          device="cpu")
-        self.jseq = jnp.zeros((B,), jnp.int32)
-        self.tseq = torch.zeros((B,), dtype=torch.int32)
+        self.jseq = jnp.zeros((nb,), jnp.int32)
+        self.tseq = torch.zeros((nb,), dtype=torch.int32)
         self.bt_j, self.bt_t = jnp.asarray(bt), torch.from_numpy(bt)
 
     def prefill(self, tokens, lens):
@@ -95,6 +108,16 @@ class _Pair:
             self.tp, self.tpools, self.bt_t, self.tseq,
             torch.from_numpy(tokens), torch.from_numpy(active))
         return np.asarray(nj), nt.numpy()
+
+    def copy_trash_page(self):
+        """Give the port the reference's page 0 in every attention layer:
+        each side writes every inactive K/V row there, and the reference
+        does not fix which of several writes to one place wins."""
+        jl = pools_from_jax(jax.tree.map(np.asarray, self.jpools), self.tcfg)
+        for j, t in zip(jl, self.tpools):
+            if "k" in t:
+                for n in ("k", "v"):
+                    t[n][0].copy_(j[n][0])
 
     def _layers(self):
         """(reference, port) state of each layer, as fp32 numpy arrays."""
@@ -123,7 +146,7 @@ class _Pair:
 
 def _prompts(rng, lens):
     lp = -(-int(lens.max()) // 64) * 64
-    tokens = np.zeros((B, lp), np.int32)
+    tokens = np.zeros((len(lens), lp), np.int32)
     for b, n in enumerate(lens):
         tokens[b, :n] = rng.integers(0, 1000, n)
     return tokens
@@ -199,6 +222,39 @@ def test_jamba_f32_states_match():
          states=states)
     conv, h = np.max(states, axis=0)
     assert conv <= 2 ** -8 and h <= 1e-3, (conv, h)
+
+
+def test_idle_slots_keep_tokens_identical_under_tight_moe_capacity():
+    """An idle decode slot (seq_len 0, a block-table row of 0s, as the
+    engine's `PageManager` leaves it) gets the mean of V over its gathered
+    row on both sides. Its row enters the MoE queues beside the real
+    tokens, and with mixtral's routing (8 experts, top-2) a group of 8
+    decode rows has 3 places an expert, so an idle row ahead of a real one
+    can take its place: the port must give it the reference's value. f32
+    parameters, 8 slots of which 4-7 hold prompts; over 24 decode steps
+    the tokens must agree at every step. Before each decode the port gets
+    the reference's trash page 0, which the idle rows read."""
+    lens = np.array([0, 0, 0, 0, 5, 20, 13, 9], np.int32)
+    steps, maxp = 24, 12
+    bt = np.zeros((8, maxp), np.int32)
+    nxt = 1
+    for b, n in enumerate(lens):
+        need = -(-(int(n) + steps) // PAGE) if n else 0
+        bt[b, :need] = np.arange(nxt, nxt + need)
+        nxt += need
+    pair = _Pair("float32", "qwen3-30b-a3b", moe=dict(
+        num_experts=8, top_k=2, group_size=256), bt=bt, num_pages=96)
+    active = lens > 0
+    fj, ft = pair.prefill(_prompts(np.random.default_rng(11), lens), lens)
+    np.testing.assert_array_equal(fj[active], ft[active])
+    cur = np.where(active, ft, 0)
+    for step in range(steps):
+        pair.copy_trash_page()
+        nj, nt = pair.decode(cur, active)
+        np.testing.assert_array_equal(nj[active], nt[active],
+                                      err_msg=f"decode step {step}")
+        cur[active] = nt[active]
+    assert pair.pool_diff() <= 2 ** -7
 
 
 def test_bf16_pools_match():

@@ -9,8 +9,10 @@ Phases, each of which exits non-zero on failure:
      the flash library's SASS (`cuobjdump -sass`) must hold tensor-core
      (HGMMA) and TMA-load (UTMALDG) instructions, the int8 library's
      integer tensor-core (IGMMA) and TMA-load ones, the paged library's
-     cp.async copies (LDGSTS), and ptxas must report no spill bytes for
-     the int8 kernels; SYNCS (mbarrier) counted;
+     cp.async copies (LDGSTS), the scan library's cp.async (or TMA) copies
+     and exponentials (MUFU.EX2, counted), and ptxas must report no spill
+     bytes for the int8 and scan kernels on a fresh build; SYNCS (mbarrier)
+     counted;
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b. The attention
      kernels in bf16 with |kernel - plain| <= 1e-3 + 2**-7 |plain| on every
@@ -21,8 +23,10 @@ Phases, each of which exits non-zero on failure:
      (8, 512, 8192, 16) and decode (8, 1, 8192, 16) shapes. Each check
      must also reject a planted fault (the kernel run with the last page,
      the last key tile or the last 128-wide K tile dropped, the scan's
-     decode step with h0 read as zeros, or its prefill without the last 32
-     steps; the int8 fault must change more than 90% of the outputs). The
+     decode step with h0 read as zeros, or its prefill without its last
+     chunk of time steps; the int8 fault must change more than 90% of the
+     outputs). The scan's prefill grid must fit the card in one wave
+     (`ssm_scan.kernel.layout`, from the occupancy API). The
      int8 weights are stored K-major, as the model stores them. A paged
      row with seq_len 0 must be the mean of V over its block-table row
      (within `bf16_gate`), also at a served decode mix whose idle slots
@@ -142,7 +146,7 @@ def sass_counts(lib_path: str) -> dict:
             ops.append(words[0])
     return {k: sum(o.startswith(k) for o in ops)
             for k in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS",
-                      "LDGSTS")}
+                      "LDGSTS", "MUFU.EX2")}
 
 
 def device_ms(fn, arg_sets, per_graph=20, replays=5) -> float:
@@ -399,13 +403,18 @@ def check_ssm(gen):
     served prefill and decode shapes, y and h_final each through
     `fp32_gate`; a planted fault must fail it: at decode the step run with
     h0 read as zeros, as a scan that drops the carried state would; at
-    prefill h_final of the scan run without its last 32 steps, as one
-    that drops the last chunk of staged time steps would.
+    prefill h_final of the scan run without its last chunk of time steps
+    (the kernel's own chunk length), as one that drops the last ring stage
+    would. The prefill grid must fit the card in one wave: every block runs
+    the whole sequence, so a second wave would double the time.
     Timed at both shapes; the plain version at prefill is a 512-step
     Python loop, captured whole in the CUDA graph like any other call."""
     from repro_torch.kernels import fp32_gate
-    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
+    from repro_torch.kernels.ssm_scan.kernel import layout, ssm_scan_kernel
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    lay = layout(16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = lay["chunk"]
     variants = []
     for Bsz, S, di, N, what in SSM_SHAPES:
         decode = what == "decode"
@@ -419,8 +428,9 @@ def check_ssm(gen):
         if decode:      # y of the step with the carried state dropped
             faulty, fault_ref = ssm_scan_kernel(*sets[0][:-1], None)[0], \
                 pairs[0][1]
-        else:           # h_final with the last 32-step chunk dropped
-            u, dt, Bm, Cm = (t[:, :-32].contiguous() for t in sets[0][:4])
+        else:           # h_final with the last chunk dropped
+            u, dt, Bm, Cm = (t[:, :-chunk].contiguous()
+                             for t in sets[0][:4])
             faulty, fault_ref = ssm_scan_kernel(u, dt, Bm, Cm,
                                                 *sets[0][4:])[1], pairs[1][1]
         err, gate, fault = hold(f"ssm_scan ({what})", pairs, faulty,
@@ -434,11 +444,19 @@ def check_ssm(gen):
                  "fp32 operations": flops / FP32_PEAK * 1e3,
                  "exponentials": elems * N / EXP_RATE * 1e3}
         term = max(terms, key=terms.get)
+        if not decode:
+            blocks = -(-di // lay["channels_per_block"]) * Bsz
+            grid = dict(lay, blocks=blocks, sms=sms, waves=-(
+                -blocks // (lay["resident_blocks_per_sm"] * sms)))
+            print(f"kernel ssm_scan ({what}): {grid}", flush=True)
+            if grid["waves"] != 1:
+                fail(f"ssm_scan's prefill grid needs {grid['waves']} waves "
+                     f"at {Bsz} x {di}: {grid}")
         variants.append({
             "max_abs_err": err, "gate": gate, "fault": fault,
             "fault_desc": ("the decode step run with h0 read as zeros"
                            if decode else "h_final of the prefill run "
-                           "without its last 32 steps"),
+                           f"without its last {chunk} steps (one chunk)"),
             "ms": device_ms(ssm_scan_kernel, sets),
             "plain_ms": device_ms(ssm_scan_ref, sets,
                                   per_graph=2 if S > 1 else 20,
@@ -775,12 +793,17 @@ def main():
     print(f"build: paged_attention SASS: {sass}", flush=True)
     if not sass["LDGSTS"]:
         fail(f"paged_attention's SASS holds no cp.async copy: {sass}")
-    spills = [line.strip() for line in logs["int8_matmul"].splitlines()
-              if "spill" in line and not line.strip().startswith(
-                  "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                  "spill loads")]
-    if spills:
-        fail(f"ptxas spills in int8_matmul: {spills}")
+    sass = sass_counts(str(build.library_path("ssm_scan")))
+    print(f"build: ssm_scan SASS: {sass}", flush=True)
+    if not (sass["LDGSTS"] or sass["UTMALDG"]):
+        fail(f"ssm_scan's SASS holds no cp.async or TMA copy: {sass}")
+    for name in ("int8_matmul", "ssm_scan"):    # empty log: built before
+        spills = [line.strip() for line in logs[name].splitlines()
+                  if "spill" in line and not line.strip().startswith(
+                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                      "spill loads")]
+        if spills:
+            fail(f"ptxas spills in {name}: {spills}")
 
     # 3. kernels against their plain versions, then timed
     phase("kernels")

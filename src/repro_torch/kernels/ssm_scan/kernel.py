@@ -1,9 +1,12 @@
 """Binding of the hand-written CUDA selective-scan kernel.
 
 The kernel is `csrc/ssm_scan.cu` (it replaces the Pallas
-`repro.kernels.ssm_scan.kernel.ssm_scan_kernel`). This wrapper checks its
-inputs, allocates the outputs, launches on PyTorch's current stream and
-counts its launches in `ssm_scan_kernel.launches`.
+`repro.kernels.ssm_scan.kernel.ssm_scan_kernel`): a chunked prefill scan
+and, for S == 1, a one-step decode kernel, chosen inside the library (one
+launch a call). This wrapper checks its inputs, allocates the outputs,
+launches on PyTorch's current stream and counts its launches in
+`ssm_scan_kernel.launches`. `layout(N)` reads the prefill kernel's chunk,
+ring and grid from the library.
 """
 from __future__ import annotations
 
@@ -25,6 +28,26 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
     return lib
+
+
+LAYOUT_KEYS = ("chunk", "stages", "lanes", "channels_per_block", "threads",
+               "smem_bytes", "resident_blocks_per_sm")
+
+
+def layout(N: int = 16, lib=None) -> dict:
+    """The prefill kernel's layout for d_state N, as the built library (or
+    `lib`, another build of `csrc/ssm_scan.cu`) reports it: time steps a
+    chunk, ring stages, lanes a channel, channels and threads a block,
+    shared memory a block, and the blocks an SM holds at once
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    lib = lib or _lib()
+    out = (ctypes.c_int * len(LAYOUT_KEYS))()
+    lib.ssm_scan_layout.restype = ctypes.c_int
+    lib.ssm_scan_layout.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    build.check(lib, lib.ssm_scan_layout(N, out), "ssm_scan layout")
+    if out[-1] < 0:
+        build.check(lib, -out[-1], "ssm_scan occupancy")
+    return dict(zip(LAYOUT_KEYS, out))
 
 
 def ssm_scan_kernel(u, dt, Bm, Cm, A, D, h0=None):

@@ -23,10 +23,11 @@ the model stores them (`repro_torch.quant.k_major`). Dropping the last
 
 The selective scan is held to its plain version by `fp32_gate <= 1`, that
 is |kernel - plain| <= 1e-5 + 1e-4 |plain| on every element of y and
-h_final: the same fp32 recurrence, but nvcc contracts a*h + b into FMAs
-and the plain version sums over N in another order. Running the decode
-step with h0 read as zeros, or a prefill without its last 32 steps, must
-fail it.
+h_final: the same fp32 recurrence, but the kernel takes exp as ex2.approx
+of dt * (A log2 e), updates h with one FMA and sums over N in another
+order. Running the decode step with h0 read as zeros, or a prefill without
+its last chunk of time steps, must fail it. Its prefill grid must fit the
+card in one wave at jamba-v0.1-52b's served shape.
 """
 import pytest
 import torch
@@ -43,7 +44,7 @@ from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
+from repro_torch.kernels.ssm_scan.kernel import layout, ssm_scan_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.quant import k_major
@@ -378,12 +379,13 @@ def _ssm_inputs(gen, B, S, di, N, with_h0):
             r(di), r(B, di, N) if with_h0 else None)
 
 
-@pytest.mark.parametrize("S", [1, 64, 320, 512])
+@pytest.mark.parametrize("S", [1, 37, 64, 320, 512])
 @pytest.mark.parametrize("di", [1024, 8192])
 def test_ssm_kernel_matches_plain(gen, S, di):
-    """The served N = 16 with a random h0: S 1 (decode), 64, 320 (a
-    multiple of 64 but not of the Pallas kernel's 256-step chunk) and
-    512; d_inner 1024 (the small-input model's) and 8192 (jamba's)."""
+    """The served N = 16 with a random h0: S 1 (decode), 37 (not a
+    multiple of the kernel's chunk), 64, 320 (a multiple of 64 but not of
+    the Pallas kernel's 256-step chunk) and 512; d_inner 1024 (the
+    small-input model's) and 8192 (jamba's)."""
     args = _ssm_inputs(gen, 8, S, di, 16, True)
     n = ssm_scan_kernel.launches
     y, h = ssm_scan(*args)
@@ -397,12 +399,92 @@ def test_ssm_kernel_matches_plain(gen, S, di):
     (1, 37, 100, 4, True),       # ragged S and di, reduced()'s d_state
     (3, 70, 1000, 4, False),     # zero state, not read
     (2, 33, 130, 16, True),
+    (2, 100, 8200, 16, True),    # di % 4 == 0, not a multiple of 128
+    (2, 45, 8200, 4, False),
+    (3, 1, 130, 4, False),       # decode: ragged di, no h0
+    (3, 1, 1000, 16, True),
 ])
 def test_ssm_kernel_ragged_and_small_state(gen, B, S, di, N, with_h0):
     args = _ssm_inputs(gen, B, S, di, N, with_h0)
     y, h = ssm_scan(*args)
     yr, hr = ssm_scan_ref(*args)
     assert fp32_gate(y, yr) <= 1 and fp32_gate(h, hr) <= 1
+
+
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_ssm_decode_variant_at_served_shape(gen, N, with_h0):
+    """S 1 at jamba's B 8, d_inner 8192: the decode kernel, one launch."""
+    args = _ssm_inputs(gen, 8, 1, 8192, N, with_h0)
+    n = ssm_scan_kernel.launches
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_kernel.launches == n + 1
+    yr, hr = ssm_scan_ref(*args)
+    assert fp32_gate(y, yr) <= 1 and fp32_gate(h, hr) <= 1
+
+
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_ssm_kernel_empty_sequence(gen, N, with_h0):
+    """S 0: no y, and h_final is h0 (or the zero state), one launch."""
+    args = _ssm_inputs(gen, 3, 0, 200, N, with_h0)
+    n = ssm_scan_kernel.launches
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_kernel.launches == n + 1
+    assert y.shape == (3, 0, 200)
+    assert torch.equal(h, args[-1] if with_h0 else torch.zeros_like(h))
+
+
+@pytest.mark.parametrize("S", [1, 50])
+def test_ssm_kernel_takes_unaligned_operands(gen, S):
+    """u, dt, B and C as contiguous views one float into their storage:
+    the prefill kernel then copies 4 bytes at a time."""
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device="cuda")
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+    args = list(_ssm_inputs(gen, 2, S, 1024, 16, True))
+    args[:4] = [shifted(t) for t in args[:4]]
+    assert all(t.data_ptr() % 16 for t in args[:4])
+    y, h = ssm_scan(*args)
+    yr, hr = ssm_scan_ref(*args)
+    assert fp32_gate(y, yr) <= 1 and fp32_gate(h, hr) <= 1
+
+
+@pytest.mark.parametrize("S", [1, 512])
+def test_ssm_kernel_replays_in_a_cuda_graph(gen, S):
+    """The decode kernel (S 1) and the prefill kernel, captured once and
+    replayed after their inputs changed in place."""
+    args = _ssm_inputs(gen, 8, S, 8192, 16, True)
+    run = lambda: ssm_scan(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, h = run()
+    for t, new in zip(args, _ssm_inputs(gen, 8, S, 8192, 16, True)):
+        t.copy_(new)
+    g.replay()
+    torch.cuda.synchronize()
+    y2, h2 = run()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    yr, hr = ssm_scan_ref(*args)
+    assert fp32_gate(y, yr) <= 1 and fp32_gate(h, hr) <= 1
+
+
+@pytest.mark.parametrize("N", [4, 16])
+def test_ssm_prefill_grid_fits_one_wave(gen, N):
+    """Every block runs the whole sequence, so the served grid (B 8,
+    d_inner 8192) must be resident at once."""
+    lay = layout(N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = 8 * -(-8192 // lay["channels_per_block"])
+    assert lay["resident_blocks_per_sm"] * sms >= blocks, lay
 
 
 def test_fp32_gate_rejects_scan_without_carried_state(gen):
@@ -414,11 +496,12 @@ def test_fp32_gate_rejects_scan_without_carried_state(gen):
 
 
 def test_fp32_gate_rejects_scan_without_last_chunk(gen):
-    """At prefill from a zero state: the kernel run on all but the last 32
-    steps, as a dropped last chunk of the staged time steps would give,
-    leaves an h_final that fails the gate."""
+    """At prefill from a zero state: the kernel run on all but the last
+    chunk of time steps (the kernel's own chunk length), as a dropped last
+    ring stage would give, leaves an h_final that fails the gate."""
     args = _ssm_inputs(gen, 8, 512, 8192, 16, False)
-    cut = [t[:, :-32].contiguous() for t in args[:4]]
+    chunk = layout(16)["chunk"]
+    cut = [t[:, :-chunk].contiguous() for t in args[:4]]
     _, h = ssm_scan(*cut, *args[4:])
     assert fp32_gate(h, ssm_scan_ref(*args)[1]) > 1
 

@@ -6,7 +6,9 @@ mode (as tests/test_kernels.py runs it) and the model's
 `mamba_scan_ref`, at atol 1e-4, the tolerance of tests/test_kernels.py:
 all are the same fp32 recurrence, so they differ by rounding only.
 `apply_mamba` and `mamba_decode_step` run on the same converted weights
-on both sides. Inputs come from a numpy seed.
+on both sides. Inputs come from a numpy seed. The CUDA kernel's own
+arithmetic (exp2 of dt times a prescaled A), written in plain torch, is
+held to the oracle by `fp32_gate`, the gate the card's checks use.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_scan_ref
 from repro.models import ssm as jssm
 from repro_torch.configs.base import SSMConfig
+from repro_torch.kernels import fp32_gate
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.models import ssm as tssm
@@ -90,6 +93,58 @@ def test_plain_scan_state_continuity():
     _close(h2, h_full)
     _close(y2, y_full[:, half:])
     _close(y1, y_full[:, :half])
+
+
+def _served_inputs(seed, B, S, di, N, with_h0):
+    """`chip_smoke.check_ssm`'s distribution from a numpy seed: unit-normal
+    u, B, C, D and h0, dt = softplus(unit normal), A = -(1..N) a channel."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: np.asarray(a, np.float32)
+    return (f(rng.normal(size=(B, S, di))),
+            f(np.logaddexp(0.0, rng.normal(size=(B, S, di)))),
+            f(rng.normal(size=(B, S, N))), f(rng.normal(size=(B, S, N))),
+            f(-np.broadcast_to(np.arange(1, N + 1), (di, N))),
+            f(rng.normal(size=(di,))),
+            f(rng.normal(size=(B, di, N))) if with_h0 else None)
+
+
+def _kernel_arithmetic(u, dt, Bm, Cm, A, D, h0):
+    """The CUDA kernel's arithmetic (`csrc/ssm_scan.cu`) in plain torch,
+    fp32: e^(dt A) as 2^(dt (A log2 e)) with A log2 e rounded to fp32
+    once, h <- dA h + (dt u) B, and y as 4 partial sums over n mod 4,
+    added pairwise, plus D u. The card fuses the update and the partial
+    sums into FMAs and rounds its exp2 within 2 ulp, which this leaves
+    out."""
+    Bsz, S, di = u.shape
+    N = A.shape[1]
+    a2 = A * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    h = torch.zeros((Bsz, di, N)) if h0 is None else h0.clone()
+    ys = []
+    for t in range(S):
+        dd, uu = dt[:, t], u[:, t]
+        dA = torch.exp2(dd[..., None] * a2)
+        h = dA * h + (dd * uu)[..., None] * Bm[:, t, None, :]
+        p = h * Cm[:, t, None, :]
+        acc = [p[..., j] for j in range(4)]
+        for n in range(4, N):
+            acc[n % 4] = acc[n % 4] + p[..., n]
+        ys.append((acc[0] + acc[1]) + (acc[2] + acc[3]) + D * uu)
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("draw", [_inputs, _served_inputs])
+def test_kernel_arithmetic_matches_jnp_oracle_within_fp32_gate(draw, with_h0):
+    """The kernel's exp2 of a prescaled A and its update order stay within
+    `fp32_gate` of the reference's oracle at (2, 512, 256, 16): with the
+    tests' slow decay (dt in [0.001, 0.1], the state remembers hundreds of
+    steps) and with `check_ssm`'s inputs."""
+    args = draw(4, 2, 512, 256, 16, with_h0)
+    y, h = _kernel_arithmetic(*_torch(args))
+    yr, hr = jax_scan_ref(*[None if a is None else jnp.asarray(a)
+                            for a in args])
+    assert fp32_gate(y, torch.from_numpy(np.asarray(yr))) <= 1
+    assert fp32_gate(h, torch.from_numpy(np.asarray(hr))) <= 1
 
 
 def test_cpu_dispatch_uses_the_plain_version_and_kernel_refuses_cpu():

@@ -1,9 +1,11 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
 Counterpart of `repro.configs`. The port holds the configurations it
-serves: the paper's dense reference model, llama31-8b, its ultra-sparse
-MoE, qwen3-30b-a3b, and the hybrid Mamba + attention + MoE
-jamba-v0.1-52b; the others arrive with the slices that serve them.
+serves: the paper's three models, the dense llama31-8b, the ultra-sparse
+MoE qwen3-30b-a3b and the sparse MoE mixtral-8x7b; the hybrid Mamba +
+attention + MoE jamba-v0.1-52b; and xlstm-350m, of mLSTM and sLSTM
+blocks with tied embeddings. The others arrive with the slices that serve
+them.
 
 `reduced(name)` returns a tiny same-family config for CPU tests.
 """
@@ -26,9 +28,10 @@ from repro_torch.configs.base import (  # noqa: F401
     XLSTMConfig,
 )
 from repro_torch.configs import (  # noqa: E402
-    jamba_v0_1_52b, llama31_8b, qwen3_30b_a3b)
+    jamba_v0_1_52b, llama31_8b, mixtral_8x7b, qwen3_30b_a3b, xlstm_350m)
 
-_MODULES = (llama31_8b, qwen3_30b_a3b, jamba_v0_1_52b)
+_MODULES = (llama31_8b, qwen3_30b_a3b, jamba_v0_1_52b, mixtral_8x7b,
+            xlstm_350m)
 
 _REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

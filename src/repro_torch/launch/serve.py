@@ -9,7 +9,11 @@ under `--quant int8`). `--quant` is one of `quant.BY_NAME`: bf16, int8,
 fp8 (e4m3 weights dequantized to bf16, as the reference emulates it) or
 fp8_native (the same arithmetic: the reference has no native fp8 GEMM).
 `--device cpu` runs `reduced(arch, vocab=1024)` with the kernels' plain
-versions instead. The meter
+versions instead. Every arch of `configs` is served by name: llama31-8b,
+qwen3-30b-a3b, jamba-v0.1-52b, mixtral-8x7b and xlstm-350m; on the card
+`check_card` refuses what one card cannot serve (weights larger than its
+memory, such as mixtral-8x7b or jamba-v0.1-52b in bf16, and xLSTM in
+int8). The meter
 scrapes the engine's Prometheus text every 10 s of engine time and prints
 the live $/M-tok at $1/hr. The sim tier waits for an H100
 step-time model.
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import CostMeter
+from repro_torch.kernels.int8_matmul.kernel import K_MULTIPLE, N_MULTIPLE
 from repro_torch.models import init_params
 from repro_torch.quant import BY_NAME
 from repro_torch.serving import (ArrivalSpec, Engine, EngineConfig,
@@ -37,11 +42,54 @@ CPU_ENGINE = dict(max_batch=8, page_size=16, num_pages=512,
                   max_pages_per_seq=32)
 
 
+def check_card(cfg, quant: str, card_bytes: int):
+    """Raise NotImplementedError for a model that one card of `card_bytes`
+    cannot serve: weights larger than its memory (they wait for a sharded
+    `parallel/`), and, in int8, an int8 matrix whose shape the int8
+    kernel does not take (`K_MULTIPLE`, `N_MULTIPLE` of its wrapper), such
+    as xlstm-350m's sLSTM down projection, K = int(4/3 d) = 1365. The
+    shapes are read from the model drawn on the meta device, which holds
+    no memory."""
+    need = cfg.param_count() * BY_NAME[quant].weight_bytes
+    if need > card_bytes:
+        raise NotImplementedError(
+            f"{cfg.name} in {quant}: {need / 1e9:.1f} GB of weights do not "
+            f"fit one card of {card_bytes / 1e9:.1f} GB; sharding across "
+            "cards is not ported yet")
+    if quant != "int8":
+        return
+    meta = init_params(cfg, device="meta", generator=torch.Generator(),
+                       quant=quant)
+    refused = sorted({f"{name} (K {K}, N {N})"
+                      for name, (K, N) in _int8_matrices(meta)
+                      if K % K_MULTIPLE or N % N_MULTIPLE})
+    if refused:
+        raise NotImplementedError(
+            f"{cfg.name} in int8: the int8 kernel takes K a multiple of "
+            f"{K_MULTIPLE} and N of {N_MULTIPLE}, not "
+            + ", ".join(refused))
+
+
+def _int8_matrices(p, name=""):
+    """(name, (K, N)) of every 2-D int8 weight in a parameter tree."""
+    if isinstance(p, dict):
+        if isinstance(p.get("q"), torch.Tensor):
+            if p["q"].dtype == torch.int8 and p["q"].ndim == 2:
+                yield name, tuple(p["q"].shape)
+            return
+        for k, v in p.items():
+            yield from _int8_matrices(v, k)
+    elif isinstance(p, (list, tuple)):
+        for v in p:
+            yield from _int8_matrices(v, name)
+
+
 def build_engine(arch: str, *, device="cuda", seed: int = 0,
                  quant: str = "bf16") -> Engine:
-    """The real-tier engine: the full `arch` on the card, or a reduced one
-    with `device="cpu"`. Weights are random, drawn from `seed`, and
-    quantized layer by layer to `quant` (a key of `quant.BY_NAME`)."""
+    """The real-tier engine: the full `arch` on the card (refused by
+    `check_card` where one card cannot serve it), or a reduced one with
+    `device="cpu"`. Weights are random, drawn from `seed`, and quantized
+    layer by layer to `quant` (a key of `quant.BY_NAME`)."""
     if quant not in BY_NAME:
         raise ValueError(f"unknown quant {quant!r}; known: {sorted(BY_NAME)}")
     device = resolve_device(device)
@@ -50,6 +98,8 @@ def build_engine(arch: str, *, device="cuda", seed: int = 0,
         cfg, ecfg = reduced(arch, vocab=1024), CPU_ENGINE
     else:
         cfg, ecfg = get_config(arch), CARD_ENGINE
+        check_card(cfg, quant,
+                   torch.cuda.get_device_properties(device).total_memory)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, device=device, generator=gen, quant=quant)
     ex = RealExecutor(cfg, params, num_pages=ecfg["num_pages"],

@@ -1,7 +1,8 @@
 """Model execution against the paged KV pool (real-execution tier).
 
-Counterpart of `repro.serving.runner` for decoders of attention and Mamba
-layers, dense or MoE (`models.moe`), in any precision of `quant.BY_NAME`.
+Counterpart of `repro.serving.runner` for decoders of attention, Mamba,
+mLSTM and sLSTM blocks, dense or MoE (`models.moe`), in any precision of
+`quant.BY_NAME`.
 Fixed-shape, mask-driven step functions over `max_batch` slots:
   prefill_fn — process padded prompts for newly admitted slots, scatter K/V
                into their pages, set their Mamba states, emit the first
@@ -23,7 +24,10 @@ and runs its recurrence in the selective-scan kernel. As in the
 reference, its prefill runs over all `Lp` padded positions with no length
 mask, so the state a slot carries into decode has also seen the pad
 tokens after its prompt; only slots that prefill (or, at decode, that are
-active) take the new state (`_mask_state`).
+active) take the new state (`_mask_state`). mLSTM and sLSTM blocks
+(`models.xlstm`) keep their fp32 states the same way: prefill runs them
+from a fresh state over all `Lp` positions, decode one step from the
+pooled state. A slot that has never prefilled keeps mLSTM's `m` at -inf.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import apply_norm
 from repro_torch.quant import linear
 
@@ -52,9 +57,11 @@ def set_matmul_precision():
 def init_pools(cfg: ModelConfig, num_pages: int, page_size: int,
                max_batch: int, *, device) -> List[Dict[str, torch.Tensor]]:
     """The device state, one dict per layer: for an attention layer a bf16
-    `(num_pages, page_size, Hkv, D)` K and V pool, for a Mamba layer the
-    per-slot states `conv` `(max_batch, d_conv - 1, di)` bf16 and `h`
-    `(max_batch, di, N)` fp32."""
+    `(num_pages, page_size, Hkv, D)` K and V pool; per-slot states for the
+    others: Mamba `conv` `(max_batch, d_conv - 1, di)` bf16 and `h`
+    `(max_batch, di, N)` fp32; mLSTM `C` `(max_batch, H, dh, dh)`, `n`
+    `(max_batch, H, dh)` and `m` `(max_batch, H)` (-inf); sLSTM `c`, `n`
+    (ones), `m` and `h`, each `(max_batch, d)`; all fp32."""
     model_lib.check_served(cfg)
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
     pools = []
@@ -63,9 +70,16 @@ def init_pools(cfg: ModelConfig, num_pages: int, page_size: int,
             pools.append({
                 "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)})
-        else:
+        elif kind == "mamba":
             pools.append(ssm_lib.init_mamba_state(max_batch, cfg.d_model,
                                                   cfg.ssm, device=device))
+        elif kind == "mlstm":
+            pools.append(xlstm_lib.init_mlstm_state(
+                max_batch, cfg.d_model, cfg.num_heads, cfg.xlstm,
+                device=device))
+        else:
+            pools.append(xlstm_lib.init_slstm_state(max_batch, cfg.d_model,
+                                                    device=device))
     return pools
 
 
@@ -103,9 +117,21 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     layers = list(zip(cfg.block_pattern(), cfg.moe_layer_mask()))
 
+    def _recurrent(kind, p, h, state):
+        """A Mamba, mLSTM or sLSTM block over h: (y, new state), from
+        `state` (decode, one step) or from a fresh state (None: prefill)."""
+        if kind == "mamba":
+            if state is None:
+                return ssm_lib.apply_mamba(p["mamba"], h, cfg.ssm, qcfg)
+            return ssm_lib.mamba_decode_step(p["mamba"], h, state, cfg.ssm,
+                                             qcfg)
+        if kind == "mlstm":
+            return xlstm_lib.mlstm_seq(p, h, nq, cfg.xlstm, state, qcfg)
+        return xlstm_lib.slstm_seq(p, h, cfg.xlstm, state, qcfg)
+
     @torch.no_grad()
     def decode_fn(params, pools, block_tables, seq_lens, tokens, active):
-        """tokens: (B,) int32. Writes the new K/V and Mamba states into
+        """tokens: (B,) int32. Writes the new K/V and recurrent states into
         `pools`. Returns (next_tokens, seq_lens + active)."""
         B = tokens.shape[0]
         x = model_lib.embed_tokens(params, cfg, tokens[:, None])
@@ -127,8 +153,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
                 x = x + linear(o.reshape(B, 1, nq * hd), p["attn"]["wo"],
                                qcfg)
             else:
-                y, st = ssm_lib.mamba_decode_step(p["mamba"], h, pool,
-                                                  cfg.ssm, qcfg)
+                y, st = _recurrent(kind, p, h, pool)
                 x = x + y
                 _mask_state(pool, st, active)
             x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)
@@ -142,7 +167,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
                    do_prefill):
         """tokens: (B, Lpad) int32; lens: (B,); do_prefill: (B,) bool.
 
-        Processes prompts for flagged slots, writing their K/V and Mamba
+        Processes prompts for flagged slots, writing their K/V and recurrent
         states into `pools`; returns (first_tokens, seq_lens) with
         seq_lens set to lens for those slots."""
         B, Lp = tokens.shape
@@ -166,7 +191,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
                             positions, tok_active, page_size)
             else:
                 # over all Lp positions, pads included, as the reference
-                y, st = ssm_lib.apply_mamba(p["mamba"], h, cfg.ssm, qcfg)
+                y, st = _recurrent(kind, p, h, None)
                 x = x + y
                 _mask_state(pool, st, do_prefill)
             x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)

@@ -13,8 +13,12 @@ E)` fp32) and Mamba blocks (projections, `conv_w (R, di, k)`, and the
 fp32 `A_log (R, di, N)`, `D (R, di)` and `dt_bias (R, di)`) are cut per
 layer like any other leaf; an int8 matrix that `linear` reads (2-D once
 cut) is then stored K-major, as `quant.quantize_weight` stores it
-(`quant.stored`: one transposing copy, the same values). `pools_from_jax` cuts the reference's
-serving state (K/V pools and Mamba states, stacked the same way) per
+(`quant.stored`: one transposing copy, the same values). xLSTM blocks
+keep the reference's flat names (`mlstm_up`, ..., `slstm_down`), so they
+need no renaming; with tied embeddings the reference has no `lm_head`,
+and neither has the port. `pools_from_jax` cuts the reference's serving
+state (K/V pools, Mamba states `conv` and `h`, mLSTM states `C`, `n` and
+`m`, sLSTM states `c`, `n`, `m` and `h`, all stacked the same way) per
 layer.
 """
 from __future__ import annotations
@@ -67,20 +71,22 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
     layers = [_stored(_map(blocks[i % U],
                            lambda a, r=i // U: to_torch(a[r], device)))
               for i in range(cfg.num_layers)]
-    return {
+    params = {
         "embed": to_torch(np_params["embed"], device),
         "final_norm": _map(np_params["final_norm"],
                            lambda a: to_torch(a, device)),
         "layers": layers,
-        "lm_head": _stored(_map(np_params["lm_head"],
-                                lambda a: to_torch(a, device))),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _stored(_map(np_params["lm_head"],
+                                         lambda a: to_torch(a, device)))
+    return params
 
 
 def pools_from_jax(np_pools, cfg: ModelConfig, *, device="cpu"):
     """The reference's `runner.init_pools` state (one dict per unit
-    position, each leaf `(R, ...)`, as numpy arrays) as the port's list of
-    one dict per layer."""
+    position, each leaf `(R, ...)`, as numpy arrays: K/V pools, Mamba,
+    mLSTM and sLSTM states) as the port's list of one dict per layer."""
     U = model_lib.unit_size(cfg)
     return [_map(np_pools[i % U], lambda a, r=i // U: to_torch(a[r], device))
             for i in range(cfg.num_layers)]

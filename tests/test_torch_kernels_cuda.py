@@ -323,6 +323,14 @@ def test_int8_kernel_equals_plain(gen, M, K, N):
     assert torch.equal(out, int8_matmul_ref(*args))
 
 
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 32000)])
+def test_int8_kernel_at_lm_head_shape(gen, M, K, N):
+    """mixtral-8x7b's lm_head at decode (vocab 32000, 500 tiles of 64
+    columns): bit for bit."""
+    args = _int8_inputs(gen, M, K, N)
+    assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
+
+
 @pytest.mark.parametrize("K,N", [(272, 136), (8192, 288)])
 def test_int8_kernel_ragged_k_and_n(gen, K, N):
     """K and N that are not multiples of the tiles (K 16 past a 128-byte

@@ -47,13 +47,13 @@ def _bf16_weights(tree, name=""):
     return tree
 
 
-def _setup(dtype, arch="llama31-8b", quant="bf16", moe=None):
+def _setup(dtype, arch="llama31-8b", quant="bf16", moe=None, layers=2):
     """Reference params (`quant` int8: f32 params whose weight matrices
     are cast to bf16 and quantized, so everything but the int8 products
     runs in f32) and their conversion for the port. `moe`: fields of the
     MoE config to replace on both sides."""
-    jcfg = jax_reduced(arch, vocab=1024)
-    tcfg = reduced(arch, vocab=1024)
+    jcfg = jax_reduced(arch, vocab=1024, layers=layers)
+    tcfg = reduced(arch, vocab=1024, layers=layers)
     if moe:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
                                                                  **moe))
@@ -70,11 +70,11 @@ class _Pair:
     """Drives the JAX and the port step functions side by side."""
 
     def __init__(self, dtype, arch="llama31-8b", quant="bf16", moe=None,
-                 bt=None, num_pages=NUM_PAGES):
+                 bt=None, num_pages=NUM_PAGES, layers=2):
         """`bt`: the block tables, (batch, max_pages); by default slot b
         owns pages 1 + b * MAXP onwards."""
         self.jcfg, self.tcfg, self.jp, self.tp = _setup(dtype, arch, quant,
-                                                        moe)
+                                                        moe, layers)
         if bt is None:
             bt = np.arange(1, 1 + B * MAXP, dtype=np.int32).reshape(B, MAXP)
         nb = bt.shape[0]
@@ -182,8 +182,8 @@ def _run(pair, feed_from_jax, states=None):
     return streams_j, streams_t, diffs
 
 
-def _tokens_identical(arch="llama31-8b", quant="bf16"):
-    pair = _Pair("float32", arch, quant)
+def _tokens_identical(arch="llama31-8b", quant="bf16", moe=None):
+    pair = _Pair("float32", arch, quant, moe)
     sj, st, diffs = _run(pair, feed_from_jax=False)
     for a, b in zip(sj, st):
         np.testing.assert_array_equal(a, b)
@@ -301,3 +301,150 @@ def test_out_of_vocab_prompt_raises():
                   torch.from_numpy(tokens),
                   torch.tensor([1, 0, 0, 0], dtype=torch.int32),
                   torch.tensor([True, False, False, False]))
+
+
+MIXTRAL_ROUTING = dict(num_experts=8, top_k=2, group_size=256)
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_mixtral_tokens_identical_with_its_routing(quant):
+    """Reduced mixtral-8x7b with its own routing (8 experts, top-2, groups
+    of 256 tokens: 3 places an expert in a decode group of 4 rows), f32
+    parameters, and under int8 f32 activations with int8 weight matrices:
+    the same greedy tokens at every call, each side fed its own tokens, and
+    K/V within one bf16 step."""
+    _tokens_identical("mixtral-8x7b", quant, moe=MIXTRAL_ROUTING)
+
+
+class _Logits:
+    """Records the fp32 logits that each side's step functions compute, by
+    wrapping each framework's `unembed` (the reference's step functions
+    are jitted, so its wrapper hands the array out through a debug
+    callback); `pop()` returns the last call's pair."""
+
+    def __init__(self, monkeypatch):
+        from repro.models import model as jmodel
+        from repro_torch.models import model as tmodel
+        self.j, self.t = [], []
+        junembed, tunembed = jmodel.unembed, tmodel.unembed
+
+        def jrec(*a, **k):
+            out = junembed(*a, **k)
+            jax.debug.callback(lambda v: self.j.append(np.asarray(v)), out)
+            return out
+
+        def trec(*a, **k):
+            out = tunembed(*a, **k)
+            self.t.append(out.numpy())
+            return out
+
+        monkeypatch.setattr(jmodel, "unembed", jrec)
+        monkeypatch.setattr(tmodel, "unembed", trec)
+
+    def pop(self):
+        jax.effects_barrier()
+        return self.j.pop()[:, 0], self.t.pop()[:, 0]
+
+
+def _xlstm_states(pair):
+    """For each xLSTM state name, its largest difference between the sides
+    over its largest magnitude, in the worst layer; -inf entries (mLSTM m
+    of a slot that never prefilled) must sit at the same places on both
+    sides and are left out."""
+    worst = {}
+    for j, t in pair._layers():
+        for n, a in j.items():
+            b = t[n]
+            fin = np.isfinite(a)
+            np.testing.assert_array_equal(fin, np.isfinite(b), err_msg=n)
+            assert not np.isnan(a).any() and not np.isnan(b).any(), n
+            if fin.any():
+                key = ("mLSTM " if "C" in j else "sLSTM ") + n
+                rel = float(np.abs(a[fin] - b[fin]).max()) / max(
+                    float(np.abs(a[fin]).max()), 1e-30)
+                worst[key] = max(worst.get(key, 0.0), rel)
+    return worst
+
+
+def _xlstm_run(monkeypatch, dtype):
+    """Prefill, decode, prefill slot 2, decode on reduced xlstm-350m (4
+    layers: mLSTM, sLSTM, mLSTM, sLSTM; tied embeddings), both sides fed
+    the reference's tokens. Returns, after each call, the state
+    differences of `_xlstm_states` and the logits' largest difference over
+    their largest magnitude (the logits of the slots that took part)."""
+    logits = _Logits(monkeypatch)
+    pair = _Pair(dtype, "xlstm-350m", layers=4)
+    rng = np.random.default_rng(11)
+    states, logit_diffs = [], []
+
+    def record(mask):
+        lj, lt = logits.pop()
+        assert lt.dtype == np.float32
+        logit_diffs.append(float(np.abs(lj[mask] - lt[mask]).max())
+                           / float(np.abs(lj[mask]).max()))
+        states.append(_xlstm_states(pair))
+
+    cur = np.zeros(B, np.int32)
+    active = LENS_1 > 0
+    for lens in (LENS_1, LENS_2):
+        fj, _ = pair.prefill(_prompts(rng, lens), lens)
+        record(lens > 0)
+        cur[lens > 0] = fj[lens > 0]
+        active = active | (lens > 0)
+        for _ in range(STEPS):
+            nj, _ = pair.decode(cur, active)
+            record(active)
+            cur[active] = nj[active]
+    return states, logit_diffs
+
+
+def test_xlstm_f32_states_and_logits_match(monkeypatch):
+    """f32 parameters: after each of the 12 calls every mLSTM state (C, n,
+    m) and sLSTM state (c, n, m, h), and the fp32 logits of the slots that
+    took part, agree to fp32 rounding: 1e-5 of the largest magnitude
+    (seen: 8.2e-7 for the states, 2.6e-7 for the logits). Tokens alone
+    would show nothing: with tied random embeddings greedy decoding
+    repeats each slot's last prompt token."""
+    states, logit_diffs = _xlstm_run(monkeypatch, "float32")
+    assert max(logit_diffs) <= 1e-5, logit_diffs
+    for s in states:
+        assert max(s.values()) <= 1e-5, s
+
+
+def test_xlstm_bf16_states_and_logits_match(monkeypatch):
+    """bf16 parameters and activations, fp32 states. Both sides round each
+    projection to bf16 after summing in another order, so a gate's
+    pre-activation can land one bf16 step apart: 2**-6 at |g| in [2, 4),
+    which exp turns into 1.6% of a gate, and sLSTM's n sums such gates.
+    So every state within 0.03 of its largest magnitude (two such steps;
+    seen: 0.0152, sLSTM n after the first prefill; mLSTM C 0.0066) and the
+    logits within 0.01 of theirs (seen: 0.0019)."""
+    states, logit_diffs = _xlstm_run(monkeypatch, "bfloat16")
+    assert max(logit_diffs) <= 0.01, logit_diffs
+    for s in states:
+        assert max(s.values()) <= 0.03, s
+
+
+def test_xlstm_idle_slot_keeps_minus_inf_stabiliser():
+    """A slot that never prefills keeps mLSTM's m at -inf and C, n at 0 on
+    both sides, through a prefill and decode steps of the others; no state
+    holds a NaN."""
+    pair = _Pair("float32", "xlstm-350m", layers=4)
+    lens = np.array([7, 0, 18, 3], np.int32)
+    active = lens > 0
+    fj, ft = pair.prefill(_prompts(np.random.default_rng(3), lens), lens)
+    cur = np.where(active, ft, 0)
+    for _ in range(3):
+        _, nt = pair.decode(cur, active)
+        cur[active] = nt[active]
+    n_mlstm = 0
+    for j, t in pair._layers():
+        for side in (j, t):
+            for a in side.values():
+                assert not np.isnan(a).any()
+            if "C" in side:
+                assert np.all(side["m"][1] == -np.inf)
+                assert np.all(side["m"][active] > -np.inf)
+                assert not side["C"][1].any() and not side["n"][1].any()
+        n_mlstm += "C" in j
+    assert n_mlstm == 2

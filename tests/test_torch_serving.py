@@ -19,7 +19,7 @@ import repro.serving as jserving
 import repro_torch.serving as tserving
 from repro.configs import reduced as jax_reduced
 from repro.models import init_params as jax_init_params
-from repro_torch.configs import reduced
+from repro_torch.configs import get_config, reduced
 from repro_torch.launch import serve as tserve
 from repro_torch.serving.executors import RealExecutor
 from repro_torch.weights import params_from_jax
@@ -164,7 +164,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {"repro_torch.models.ssm", "repro_torch.kernels.ssm_scan.kernel",
             "repro_torch.kernels.ssm_scan.ops",
             "repro_torch.kernels.ssm_scan.ref",
-            "repro_torch.configs.jamba_v0_1_52b"} <= loaded
+            "repro_torch.configs.jamba_v0_1_52b",
+            "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.xlstm_350m",
+            "repro_torch.models.xlstm"} <= loaded
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu():
@@ -193,7 +196,10 @@ def test_cpu_server_meters_every_request(capsys):
                                         ("qwen3-30b-a3b", "fp8"),
                                         ("llama31-8b", "int8"),
                                         ("jamba-v0.1-52b", "int8"),
-                                        ("jamba-v0.1-52b", "fp8")])
+                                        ("jamba-v0.1-52b", "fp8"),
+                                        ("mixtral-8x7b", "int8"),
+                                        ("mixtral-8x7b", "fp8"),
+                                        ("xlstm-350m", "bf16")])
 def test_cpu_server_serves_moe_and_quantized(arch, quant, capsys):
     tserve.main(["--device", "cpu", "--arch", arch, "--quant", quant,
                  "--lam", "5", "--requests", "4"])
@@ -208,3 +214,23 @@ def test_build_engine_quantizes_and_routes_through_qcfg():
     assert layer["moe"]["experts_down"]["q"].dtype == torch.int8
     with pytest.raises(ValueError, match="unknown quant"):
         tserve.build_engine("llama31-8b", device="cpu", quant="int4")
+
+
+def test_card_refuses_what_one_card_cannot_serve():
+    """On an 80 GB card: mixtral-8x7b (46.7 B parameters) and
+    jamba-v0.1-52b fit in int8 and fp8 but not in bf16; xlstm-350m serves
+    in bf16 but not in int8, whose kernel does not take its sLSTM down
+    projection's K of 1365. Each refusal raises; nothing falls back."""
+    card = 80 * 10 ** 9
+    for arch in ("mixtral-8x7b", "jamba-v0.1-52b"):
+        cfg = get_config(arch)
+        with pytest.raises(NotImplementedError, match="do not fit"):
+            tserve.check_card(cfg, "bf16", card)
+        for quant in ("int8", "fp8"):
+            tserve.check_card(cfg, quant, card)
+    xl = get_config("xlstm-350m")
+    tserve.check_card(xl, "bf16", card)
+    with pytest.raises(NotImplementedError, match="1365"):
+        tserve.check_card(xl, "int8", card)
+    for arch in ("llama31-8b", "qwen3-30b-a3b"):
+        tserve.check_card(get_config(arch), "bf16", card)

@@ -63,8 +63,24 @@ Phases, each of which exits non-zero on failure:
      launch per attention layer per decode step, one scan launch per
      Mamba layer per call and, under int8, one int8 launch per `linear`
      per call (225 for llama31-8b, 193 for qwen3-30b-a3b, 177 for
-     jamba-v0.1-52b, 129 for mixtral-8x7b).
-Then a `kernels` JSON line, the `nvidia-smi` line, and as the last line
+     jamba-v0.1-52b, 129 for mixtral-8x7b). The meter prices at the
+     card's hardware-book entry (`launch.serve.real_tier_hw`: `h100-sxm`),
+     and each prefill call's and decode step's work and wall time is
+     logged for phase 6;
+  6. sim tier: each main path again on `SimExecutor` over the step-time
+     model of `h100-sxm` (same quant, engine and arrivals): every request
+     must finish with the real tier's token count; tokens/s, TTFT p50,
+     engine clock, decode-step and prefill-call times printed beside the
+     real tier's, with real/sim ratios (a finding, not a gate). Then the
+     paper's 42-cell matrix (the reference's `paper_h100` axes: the
+     paper's three models x {bf16, fp8} x the 7-point lambda ladder,
+     mixtral-8x7b on 2 chips) on `h100-sxm` through `PlanRunner`: 42
+     records, every C_eff finite and positive, penalty = 1/U to 1e-9,
+     C_eff non-increasing along each ladder within 5%; per (model, quant)
+     C_eff at each lambda, the idle-to-saturation spread and the penalty
+     at lambda 1, per model the fp8 uplift in saturation tokens/s.
+Then `main_paths`, `sim_tier` and `kernels` JSON lines, the `nvidia-smi`
+line, and as the last line
 `{"ok": true, "device": {...}}`. Needs no network and imports no JAX.
 """
 from __future__ import annotations
@@ -133,6 +149,13 @@ SMALL_CHECKS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
                 ("qwen3-30b-a3b", "bf16"), ("jamba-v0.1-52b", "bf16"),
                 ("jamba-v0.1-52b", "int8"), ("mixtral-8x7b", "int8"),
                 ("xlstm-350m", "bf16")]
+# phases 5 and 6: 8 chat requests (512 in : 256 out) that overlap
+MAIN_SPEC = dict(lam=4.0, n_requests=8, io_shape="chat", scale=1.0, seed=0)
+# phase 6: the sim tier on the card's own hardware-book entry, and the
+# reference's `paper_h100` matrix (experiments/plans.py) moved onto it
+SIM_HW = "h100-sxm"
+PAPER_TRIO = ("llama31-8b", "qwen3-30b-a3b", "mixtral-8x7b")
+PAPER_CHIPS = (("llama31-8b", 1), ("qwen3-30b-a3b", 1), ("mixtral-8x7b", 2))
 
 
 def fail(msg: str):
@@ -864,11 +887,37 @@ def int8_launches_per_call(cfg) -> int:
     return 4 * (n["attn"] + n["mamba"]) + mlp * n["mlp"] + 1
 
 
+def record_steps(ex):
+    """Wrap a RealExecutor's `prefill` and `decode` so that each call logs
+    its work and the wall time it returns: prefill as (prompt tokens,
+    prompts, s), decode as (active slots, their mean context before the
+    step, s). Returns the log; the executor's own code is untouched."""
+    log = {"prefill": [], "decode": []}
+    prefill, decode = ex.prefill, ex.decode
+
+    def logged_prefill(tokens, lens, do_mask, block_tables):
+        first, dt = prefill(tokens, lens, do_mask, block_tables)
+        log["prefill"].append((int(lens[do_mask].sum()),
+                               int(do_mask.sum()), dt))
+        return first, dt
+
+    def logged_decode(tokens, active, block_tables):
+        ctx = ex.seq_lens.cpu().numpy()[active]
+        nxt, dt = decode(tokens, active, block_tables)
+        log["decode"].append((int(active.sum()), float(ctx.mean()), dt))
+        return nxt, dt
+
+    ex.prefill, ex.decode = logged_prefill, logged_decode
+    return log
+
+
 def main_path(arch, quant, kernels):
     """Serve 8 chat requests on the full-width `arch` in `quant`; returns
-    the path's readings and its kernels' launch counts."""
+    the path's readings, its kernels' launch counts and the log of its
+    prefill calls and decode steps (`record_steps`)."""
     import numpy as np
-    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.core import chip_hour_price
+    from repro_torch.launch.serve import build_engine, real_tier_hw, serve
     from repro_torch.serving import ArrivalSpec
     t0 = time.perf_counter()
     eng = build_engine(arch, device="cuda", seed=0, quant=quant)
@@ -881,12 +930,14 @@ def main_path(arch, quant, kernels):
           f"{_n_bytes(ex.params) / 2**30:.2f} GiB, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    spec = ArrivalSpec(lam=4.0, n_requests=8, io_shape="chat", scale=1.0,
-                       seed=0)
+    spec = ArrivalSpec(**MAIN_SPEC)
+    steps = record_steps(ex)
+    hw = real_tier_hw("cuda")
+    price = chip_hour_price(hw)
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
-    reqs, meter = serve(eng, spec, price_per_hr=1.0,
+    reqs, meter = serve(eng, spec, price_per_hr=price,
                         log=lambda s: print(s, flush=True))
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
@@ -918,14 +969,156 @@ def main_path(arch, quant, kernels):
         "decode_steps": calls[1], "engine_clock_s": eng.t,
         "tokens_per_s": got / eng.t,
         "ttft_p50_ms": 1e3 * float(np.median([r.ttft for r in reqs])),
-        "usd_per_mtok_at_1usd_hr": meter.summary()["time_weighted_avg"],
+        "hw": hw, "price_per_hr": price,
+        "usd_per_mtok": meter.summary()["time_weighted_avg"],
+        # C_eff is linear in the price
+        "usd_per_mtok_at_1usd_hr":
+            meter.summary()["time_weighted_avg"] / price,
         "launches": launches, "wall_s": wall,
     }
     print(f"main path {arch} {quant}: tokens {out['output_tokens']}, "
           f"tokens/s {out['tokens_per_s']:.1f}, TTFT p50 "
-          f"{out['ttft_p50_ms']:.1f} ms, meter avg $/MTok at $1/hr "
-          f"{out['usd_per_mtok_at_1usd_hr']:.4f}", flush=True)
+          f"{out['ttft_p50_ms']:.1f} ms, meter avg $/MTok "
+          f"{out['usd_per_mtok']:.4f} at {hw}'s ${price}/hr "
+          f"({out['usd_per_mtok_at_1usd_hr']:.4f} at $1/hr)", flush=True)
+    return out, steps
+
+
+def sim_against_real(real, steps):
+    """Phase 6, one main path: the same arch, quant, engine and arrivals
+    on `SimExecutor` over the step-time model of `SIM_HW`; prints the
+    sim's readings beside the real tier's (`real`, `steps` from
+    `main_path`) and fails unless every sim request finishes with the
+    real tier's token count. Returns the readings."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import chip_hour_price
+    from repro_torch.launch.serve import CARD_ENGINE, serve
+    from repro_torch.serving import (ArrivalSpec, Engine, EngineConfig,
+                                     SimExecutor)
+    from repro_torch.simulate import HW_BY_NAME, StepTimeModel
+    arch, quant = real["arch"], real["quant"]
+    cfg = get_config(arch)
+    stm = StepTimeModel(cfg, HW_BY_NAME[SIM_HW], quant=quant)
+    eng = Engine(EngineConfig(**CARD_ENGINE), SimExecutor(cfg, stm))
+    reqs, meter = serve(eng, ArrivalSpec(**MAIN_SPEC),
+                        price_per_hr=chip_hour_price(SIM_HW),
+                        log=lambda s: None)
+    got = eng.metrics.get("repro:generation_tokens_total")
+    if not all(r.finish_time is not None for r in reqs):
+        fail(f"sim {arch} {quant}: not every request finished")
+    if got != real["output_tokens"]:
+        fail(f"sim {arch} {quant}: generated {got} tokens, the real tier "
+             f"{real['output_tokens']}")
+    # the decode steps at the largest batch the path reached (8 slots on
+    # the card's main paths)
+    batch = max(bs for bs, _, _ in steps["decode"])
+    full = [(ctx, dt) for bs, ctx, dt in steps["decode"] if bs == batch]
+    out = {
+        "arch": arch, "quant": quant, "hw": SIM_HW,
+        "sim_tokens_per_s": got / eng.t, "real_tokens_per_s":
+            real["tokens_per_s"],
+        "sim_ttft_p50_ms": 1e3 * float(np.median([r.ttft for r in reqs])),
+        "real_ttft_p50_ms": real["ttft_p50_ms"],
+        "sim_engine_clock_s": eng.t,
+        "real_engine_clock_s": real["engine_clock_s"],
+        "sim_usd_per_mtok": meter.summary()["time_weighted_avg"],
+        "real_usd_per_mtok": real["usd_per_mtok"],
+        "decode_batch": batch, "decode_steps_at_batch": len(full),
+        "decode_ctx": float(np.median([c for c, _ in full])),
+        "sim_decode_ms": 1e3 * float(np.median(
+            [stm.decode_time(batch, c) for c, _ in full])),
+        "real_decode_ms": 1e3 * float(np.median([dt for _, dt in full])),
+        "prefill_calls": [(n, k) for n, k, _ in steps["prefill"]],
+        "sim_prefill_ms": 1e3 * float(np.median(
+            [stm.prefill_time(n, k) for n, k, _ in steps["prefill"]])),
+        "real_prefill_ms": 1e3 * float(np.median(
+            [dt for _, _, dt in steps["prefill"]])),
+    }
+    for key in ("tokens_per_s", "ttft_p50_ms", "engine_clock_s",
+                "decode_ms", "prefill_ms"):
+        out[f"real_over_sim_{key}"] = out[f"real_{key}"] / out[f"sim_{key}"]
+    print(f"sim {arch} {quant} on {SIM_HW}: {len(reqs)}/{len(reqs)} "
+          f"requests, {got} tokens; tokens/s sim "
+          f"{out['sim_tokens_per_s']:.1f} real {out['real_tokens_per_s']:.1f}"
+          f" (real/sim {out['real_over_sim_tokens_per_s']:.3f}); TTFT p50 "
+          f"sim {out['sim_ttft_p50_ms']:.1f} real "
+          f"{out['real_ttft_p50_ms']:.1f} ms "
+          f"({out['real_over_sim_ttft_p50_ms']:.3f}); engine clock sim "
+          f"{out['sim_engine_clock_s']:.2f} real "
+          f"{out['real_engine_clock_s']:.2f} s "
+          f"({out['real_over_sim_engine_clock_s']:.3f})", flush=True)
+    print(f"sim {arch} {quant} on {SIM_HW}: decode step at {batch} slots, "
+          f"median context {out['decode_ctx']:.0f} over {len(full)} steps: "
+          f"decode_time {out['sim_decode_ms']:.2f} ms, real wall "
+          f"{out['real_decode_ms']:.2f} ms "
+          f"({out['real_over_sim_decode_ms']:.3f}); prefill calls "
+          f"{out['prefill_calls']}: prefill_time median "
+          f"{out['sim_prefill_ms']:.2f} ms, real wall "
+          f"{out['real_prefill_ms']:.2f} ms "
+          f"({out['real_over_sim_prefill_ms']:.3f})", flush=True)
     return out
+
+
+def sim_matrix():
+    """Phase 6, the paper's matrix: the reference's `paper_h100` grid with
+    `hws=(SIM_HW,)`, run serially through the port's `PlanRunner`. Prints
+    per (model, quant) C_eff at each lambda, the idle-to-saturation spread
+    (max/min C_eff) and the penalty at lambda 1, and per model the fp8
+    uplift in saturation tokens/s; fails unless there are 42 records,
+    every C_eff is finite and positive, penalty = 1/U to 1e-9 and C_eff
+    is non-increasing along each ladder within 5%."""
+    import math
+    from repro_torch.core import LAMBDA_LADDER
+    from repro_torch.experiments import GridSpec, PlanRunner
+    plan = GridSpec(name="paper_h100_on_h100_sxm", archs=PAPER_TRIO,
+                    hws=(SIM_HW,), quants=("bf16", "fp8"),
+                    ladder=LAMBDA_LADDER, n_chips_by_arch=PAPER_CHIPS,
+                    seed=0, protocol="paper").expand()
+    t0 = time.perf_counter()
+    recs = PlanRunner(plan).run(parallel=False, backend="process")
+    wall = time.perf_counter() - t0
+    if len(recs) != 42:
+        fail(f"sim matrix: {len(recs)} records, expected 42")
+    groups = {}
+    for r in recs:
+        if not (math.isfinite(r.c_eff) and r.c_eff > 0):
+            fail(f"sim matrix: C_eff {r.c_eff} at {r.model} {r.quant} "
+                 f"lambda {r.lam}")
+        if not math.isclose(r.penalty, 1.0 / r.util, rel_tol=1e-9):
+            fail(f"sim matrix: penalty {r.penalty} != 1/U {1 / r.util} at "
+                 f"{r.model} {r.quant} lambda {r.lam}")
+        groups.setdefault((r.model, r.quant), []).append(r)
+    rows = []
+    for (model, quant), g in groups.items():
+        g.sort(key=lambda r: r.lam)
+        ceffs = [r.c_eff for r in g]
+        for a, b in zip(ceffs, ceffs[1:]):
+            if b > a * 1.05:
+                fail(f"sim matrix: C_eff rises along {model} {quant}'s "
+                     f"ladder: {ceffs}")
+        row = {"model": model, "quant": quant, "n_chips": g[0].n_chips,
+               "price_per_hr": g[0].price_per_hr,
+               "c_eff": {f"{r.lam:g}": r.c_eff for r in g},
+               "spread": max(ceffs) / min(ceffs),
+               "penalty_at_1": g[0].penalty, "theta_max": g[0].theta_max,
+               "completed": sum(r.n_completed for r in g),
+               "requests": sum(r.n_requests for r in g)}
+        rows.append(row)
+        print(f"sim matrix {model} {quant} x{row['n_chips']} at "
+              f"${row['price_per_hr']}/hr: C_eff $/MTok by lambda "
+              + " ".join(f"{k}:{v:.4f}" for k, v in row["c_eff"].items())
+              + f"; spread {row['spread']:.2f}x, penalty at lambda 1 "
+              f"{row['penalty_at_1']:.2f}, saturation "
+              f"{row['theta_max']:.1f} tokens/s, "
+              f"{row['completed']}/{row['requests']} requests", flush=True)
+    by = {(r["model"], r["quant"]): r for r in rows}
+    uplift = {m: by[(m, "fp8")]["theta_max"] / by[(m, "bf16")]["theta_max"]
+              - 1.0 for m in PAPER_TRIO}
+    print("sim matrix: fp8 uplift in saturation tokens/s: "
+          + ", ".join(f"{m} {u:+.1%}" for m, u in uplift.items())
+          + f"; {len(recs)} records in {wall:.1f} s", flush=True)
+    return {"rows": rows, "fp8_uplift": uplift, "wall_s": wall}
 
 
 def main():
@@ -1061,14 +1254,25 @@ def main():
                "flash_attention": flash_attention_kernel,
                "int8_matmul": int8_matmul_kernel,
                "ssm_scan": ssm_scan_kernel}
-    paths = []
+    paths, steps = [], []
     for arch, quant in MAIN_PATHS:
         phase(f"main path {arch} {quant}")
-        paths.append(main_path(arch, quant, kernels))
+        out, log = main_path(arch, quant, kernels)
+        paths.append(out)
+        steps.append(log)
         gc.collect()
         torch.cuda.empty_cache()
+
+    # 6. the sim tier on the card's entry, beside the real tier's readings
+    phase("sim tier")
+    t0 = time.perf_counter()
+    sims = [sim_against_real(p, log) for p, log in zip(paths, steps)]
+    matrix = sim_matrix()
+    print(f"sim tier: {time.perf_counter() - t0:.1f} s", flush=True)
     phase("done")
     print(json.dumps({"main_paths": paths}))
+    print(json.dumps({"sim_tier": {"against_real": sims,
+                                   "matrix": matrix}}))
 
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

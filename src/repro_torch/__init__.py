@@ -6,5 +6,8 @@ it keeps as its own copy. The port serves the live cost-metered server:
 `launch.serve` -> `serving.Engine` -> `serving.RealExecutor` ->
 `serving.runner` (attention decoders, dense or MoE, over the paged KV
 pool, in bf16, int8 or fp8; attention and the int8 GEMM in the kernels of
-`kernels/`, built from `csrc/`) -> `core.CostMeter`.
+`kernels/`, built from `csrc/`) -> `core.CostMeter`. Its sim tier
+(`simulate`, `serving.SimExecutor`, `core.sweep`, `experiments`) runs the
+same engine on a step-time model of a hardware-book entry (the
+reference's TPUs and `h100-sxm`) and imports no torch.
 """

@@ -1,13 +1,16 @@
-"""Commercial API $/M-token tiers (the paper's §6.3 reference list prices).
+"""Price books: accelerator $/chip-hr and commercial API $/M-token tiers.
 
-Counterpart of `repro.core.pricing` without `chip_hour_price`: that reads
-the reference's TPU hardware book, and the port prices its live tier at a
-caller-given $/hr until an H100 entry exists.
+API list prices are the paper's own reference tiers (§6.3, accessed
+2026-06-09): asymmetric input/output pricing is retained so the crossover
+analysis can price blended workload shapes (§6.3's extension) as well as
+the paper's headline output-token basis.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
+
+from repro_torch.simulate.hardware import HW_BY_NAME
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,3 +33,7 @@ API_TIERS: Dict[str, APITier] = {
     "claude-sonnet-4.6": APITier("claude-sonnet-4.6", 3.00, 15.00),
     "gemini-3.1-pro": APITier("gemini-3.1-pro", 2.00, 12.00),
 }
+
+
+def chip_hour_price(hw_name: str, n_chips: int = 1) -> float:
+    return HW_BY_NAME[hw_name].price_per_chip_hr * n_chips

@@ -2,21 +2,30 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \
         --quant int8 --lam 2 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --tier sim \
+        --hw h100-sxm --lam 5 --requests 200
 
-Real tier only: the full configuration on the card, wall-clock PyTorch
-execution through the hand-written kernels (attention; every `linear`
-under `--quant int8`). `--quant` is one of `quant.BY_NAME`: bf16, int8,
-fp8 (e4m3 weights dequantized to bf16, as the reference emulates it) or
-fp8_native (the same arithmetic: the reference has no native fp8 GEMM).
-`--device cpu` runs `reduced(arch, vocab=1024)` with the kernels' plain
-versions instead. Every arch of `configs` is served by name: llama31-8b,
-qwen3-30b-a3b, jamba-v0.1-52b, mixtral-8x7b and xlstm-350m; on the card
-`check_card` refuses what one card cannot serve (weights larger than its
-memory, such as mixtral-8x7b or jamba-v0.1-52b in bf16, and xLSTM in
-int8). The meter
-scrapes the engine's Prometheus text every 10 s of engine time and prints
-the live $/M-tok at $1/hr. The sim tier waits for an H100
-step-time model.
+real tier (the default): the full configuration on the card, wall-clock
+PyTorch execution through the hand-written kernels (attention; every
+`linear` under `--quant int8`). `--quant` is one of `quant.BY_NAME`:
+bf16, int8, fp8 (e4m3 weights dequantized to bf16, as the reference
+emulates it) or fp8_native (the same arithmetic: the reference has no
+native fp8 GEMM). `--device cpu` runs `reduced(arch, vocab=1024)` with
+the kernels' plain versions instead. Every arch of `configs` is served by
+name: llama31-8b, qwen3-30b-a3b, jamba-v0.1-52b, mixtral-8x7b and
+xlstm-350m; on the card `check_card` refuses what one card cannot serve
+(weights larger than its memory, such as mixtral-8x7b or jamba-v0.1-52b
+in bf16, and xLSTM in int8). It prices at the hardware it runs on:
+`cpu-node` on the CPU, and on the card the book entry of its name
+(`CARD_HW`; a card without one raises).
+
+sim tier: the full configuration on the calibrated step-time model of
+`--hw` (default `h100-sxm`) over `--chips` chips, priced at that entry's
+$/chip-hour; it needs no device. As in the reference, except that the
+reference's default tier is `sim` on `tpu-v5e`.
+
+The meter scrapes the engine's Prometheus text every 10 s of engine time
+and prints the live $/M-tok.
 """
 from __future__ import annotations
 
@@ -26,13 +35,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import CostMeter
+from repro_torch.core import CostMeter, chip_hour_price
 from repro_torch.kernels.int8_matmul.kernel import K_MULTIPLE, N_MULTIPLE
 from repro_torch.models import init_params
 from repro_torch.quant import BY_NAME
 from repro_torch.serving import (ArrivalSpec, Engine, EngineConfig,
-                                 RealExecutor, synth_requests)
+                                 RealExecutor, SimExecutor, synth_requests)
 from repro_torch.serving.executors import resolve_device
+from repro_torch.simulate import HW_BY_NAME, StepTimeModel
 
 # On the card: room for 8 chat requests of 512 + 256 tokens at page 16
 # (48 pages each), plus the trash page.
@@ -40,6 +50,31 @@ CARD_ENGINE = dict(max_batch=8, page_size=16, num_pages=8 * 48 + 1,
                    max_pages_per_seq=48)
 CPU_ENGINE = dict(max_batch=8, page_size=16, num_pages=512,
                   max_pages_per_seq=32)
+# the sim tier's engine, as the reference's
+SIM_ENGINE = dict(max_batch=256, page_size=16, num_pages=65536,
+                  max_pages_per_seq=64)
+# card name (`torch.cuda.get_device_name`) -> its hardware-book entry
+CARD_HW = {"NVIDIA H100 80GB HBM3": "h100-sxm"}
+
+
+def card_hw(name: str) -> str:
+    """The hardware-book entry the real tier prices a card at, by the
+    card's name; a card without an entry raises rather than being priced
+    at another's."""
+    if name not in CARD_HW:
+        raise ValueError(f"no hardware-book entry for the card {name!r}; "
+                         f"known cards: {sorted(CARD_HW)}")
+    return CARD_HW[name]
+
+
+def real_tier_hw(device) -> str:
+    """The entry the real tier on `device` prices at: `cpu-node` on the
+    CPU, as the reference's real tier; on the card, `card_hw` of its
+    name."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return "cpu-node"
+    return card_hw(torch.cuda.get_device_name(device))
 
 
 def check_card(cfg, quant: str, card_bytes: int):
@@ -84,12 +119,24 @@ def _int8_matrices(p, name=""):
             yield from _int8_matrices(v, name)
 
 
-def build_engine(arch: str, *, device="cuda", seed: int = 0,
+def build_engine(arch: str, *, tier: str = "real", hw: str = "h100-sxm",
+                 n_chips: int = 1, device="cuda", seed: int = 0,
                  quant: str = "bf16") -> Engine:
     """The real-tier engine: the full `arch` on the card (refused by
     `check_card` where one card cannot serve it), or a reduced one with
     `device="cpu"`. Weights are random, drawn from `seed`, and quantized
-    layer by layer to `quant` (a key of `quant.BY_NAME`)."""
+    layer by layer to `quant` (a key of `quant.BY_NAME`).
+
+    `tier="sim"`: the full `arch` on the step-time model of the book
+    entry `hw` over `n_chips` chips, as the reference builds it; `device`
+    and `seed` are not read."""
+    if tier == "sim":
+        cfg = get_config(arch)
+        stm = StepTimeModel(cfg, HW_BY_NAME[hw], n_chips=n_chips,
+                            quant=quant)
+        return Engine(EngineConfig(**SIM_ENGINE), SimExecutor(cfg, stm))
+    if tier != "real":
+        raise ValueError(f"unknown tier {tier!r}; expected 'real' or 'sim'")
     if quant not in BY_NAME:
         raise ValueError(f"unknown quant {quant!r}; known: {sorted(BY_NAME)}")
     device = resolve_device(device)
@@ -140,29 +187,42 @@ def serve(eng: Engine, spec: ArrivalSpec, price_per_hr: float,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama31-8b")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tier", default="real", choices=["real", "sim"])
+    ap.add_argument("--hw", default="h100-sxm", choices=sorted(HW_BY_NAME),
+                    help="the sim tier's hardware-book entry (the real "
+                         "tier prices at the hardware it runs on)")
+    ap.add_argument("--chips", type=int, default=1,
+                    help="the sim tier's chip count")
+    ap.add_argument("--device", default="cuda",
+                    help="the real tier's device")
     ap.add_argument("--quant", default="bf16", choices=sorted(BY_NAME))
     ap.add_argument("--lam", type=float, default=2.0)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--io-shape", default="chat")
     ap.add_argument("--scale", type=float, default=None,
-                    help="token-length scale (default 1.0 on the card, "
-                         "0.05 on the CPU)")
+                    help="token-length scale (default 1.0, and 0.05 for "
+                         "the real tier on the CPU)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-tier", default=None)
     ap.add_argument("--accept-slo-mismatch", action="store_true")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    scale = args.scale if args.scale is not None else (
-        0.05 if device.type == "cpu" else 1.0)
-    eng = build_engine(args.arch, device=device, seed=args.seed,
-                       quant=args.quant)
+    if args.tier == "sim":
+        scale = 1.0
+        eng = build_engine(args.arch, tier="sim", hw=args.hw,
+                           n_chips=args.chips, quant=args.quant)
+        price = chip_hour_price(args.hw, args.chips)
+    else:
+        device = resolve_device(args.device)
+        scale = 0.05 if device.type == "cpu" else 1.0
+        eng = build_engine(args.arch, device=device, seed=args.seed,
+                           quant=args.quant)
+        price = chip_hour_price(real_tier_hw(device))
+    if args.scale is not None:
+        scale = args.scale
     spec = ArrivalSpec(lam=args.lam, n_requests=args.requests,
                        io_shape=args.io_shape, scale=scale, seed=args.seed)
-    # the real tier prices at $1/hr, as the reference's does, until an
-    # H100 price entry exists
-    _, meter = serve(eng, spec, price_per_hr=1.0)
+    _, meter = serve(eng, spec, price_per_hr=price)
     if args.compare_tier:
         print(meter.compare_api(
             args.compare_tier,

@@ -1,14 +1,18 @@
 """Continuous-batching serving runtime with a paged KV cache.
 
 The numpy scheduler (engine, paging, arrivals, metrics) is a copy of the
-reference's; `RealExecutor` runs the PyTorch step functions of `runner`
-on the card, with the paged- and flash-attention kernels of this package.
+reference's. Two execution tiers share it:
+  * RealExecutor — the PyTorch step functions of `runner` on the card,
+    with the kernels of this package; wall-clock step timing.
+  * SimExecutor  — the calibrated step-time model of `simulate` (the
+    reference's TPUs and the H100); virtual-clock timing, no device.
 """
 from repro_torch.serving.arrivals import (  # noqa: F401
     ArrivalSpec, RateProfile, gamma_arrivals, poisson_arrivals,
     profile_arrivals, synth_arrays, synth_requests)
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: F401
-from repro_torch.serving.executors import RealExecutor  # noqa: F401
+from repro_torch.serving.executors import (  # noqa: F401
+    RealExecutor, SimExecutor)
 from repro_torch.serving.metrics import MetricsRegistry  # noqa: F401
 from repro_torch.serving.request import Request, RequestState  # noqa: F401
 from repro_torch.serving.resilience import (  # noqa: F401

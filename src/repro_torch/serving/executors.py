@@ -1,13 +1,30 @@
-"""The wall-clock execution tier behind the engine, on PyTorch.
+"""Execution tiers behind the engine: real PyTorch steps or a step-time model.
 
-Counterpart of `repro.serving.executors.RealExecutor`, with the same
-interface: `needs_tokens`, `reset_slot`, `prefill`, `decode` and the
-per-step `decode_multi`. It owns the device state (KV pools, Mamba
+RealExecutor — counterpart of `repro.serving.executors.RealExecutor`, with
+the same interface: `needs_tokens`, `reset_slot`, `prefill`, `decode` and
+the per-step `decode_multi`. It owns the device state (KV pools, Mamba
 states, seq_lens), runs the step functions of
 `repro_torch.serving.runner`, and returns durations in wall-clock
-seconds, each taken after
-`torch.cuda.synchronize()` on the card. The sim tier waits for an H100
-step-time model.
+seconds, each taken after `torch.cuda.synchronize()` on the card. torch
+and the runner are imported lazily, so sim-only processes
+(parallel_sweep workers) never load them.
+
+SimExecutor — a copy of the reference's: same interface, zero compute:
+durations come from a calibrated step-time model
+(repro_torch.simulate.step_time) so the engine's scheduler/queueing
+dynamics play out on a virtual clock. Token values are irrelevant to
+cost metering (only counts and timing matter), so it emits zeros and
+advertises `needs_tokens = False` (the engine then skips materialising
+prompt token matrices).
+
+`decode_multi(tokens, active, block_tables, context_lens, max_steps,
+time_budget)` is the fast-forward hook: take up to `max_steps` decode
+steps with a frozen batch, stopping after the first step whose cumulative
+duration reaches `time_budget` (events are processed at the top of the
+engine loop, i.e. *after* the step that crosses them — identical to the
+per-token reference loop). SimExecutor answers in O(log k) closed-form
+model evaluations; RealExecutor falls back to per-step execution because
+wall-clock durations cannot be predicted.
 """
 from __future__ import annotations
 
@@ -15,15 +32,12 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
-import torch
-
-from repro_torch.serving.runner import (init_pools, make_step_fns,
-                                        set_matmul_precision)
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device) -> "torch.device":
     """The device an entry point runs on: the card unless the caller asks
     for the CPU. Raises when a CUDA device is asked for and none exists."""
+    import torch
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -39,6 +53,10 @@ class RealExecutor:
 
     def __init__(self, cfg, params, *, num_pages: int, page_size: int,
                  max_batch: int, qcfg=None, device="cuda"):
+        import torch
+        from repro_torch.serving.runner import (init_pools, make_step_fns,
+                                                set_matmul_precision)
+        self._torch = torch
         self.device = resolve_device(device)
         set_matmul_precision()
         self.cfg = cfg
@@ -55,10 +73,11 @@ class RealExecutor:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self._torch.cuda.synchronize(self.device)
 
-    def _t(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _t(self, a: np.ndarray) -> "torch.Tensor":
+        return self._torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
 
     def reset_slot(self, slot: int):
         self.seq_lens[slot] = 0
@@ -104,3 +123,60 @@ class RealExecutor:
             if time_budget is not None and total >= time_budget:
                 break
         return cur, total, max(steps, 1)
+
+
+class SimExecutor:
+    """Virtual-clock tier: step durations from the step-time model."""
+
+    needs_tokens = False
+
+    def __init__(self, cfg, step_time_model, *, page_size: int = 16):
+        self.cfg = cfg
+        self.model = step_time_model
+        self.page_size = page_size
+        self._seq_lens: Optional[np.ndarray] = None
+
+    def reset_slot(self, slot: int):
+        pass
+
+    def prefill(self, tokens: np.ndarray, lens: np.ndarray,
+                do_mask: np.ndarray, block_tables: np.ndarray
+                ) -> Tuple[np.ndarray, float]:
+        n_tok = int(lens[do_mask].sum())
+        dt = self.model.prefill_time(n_tok, int(do_mask.sum()))
+        return np.zeros(tokens.shape[0], np.int32), dt
+
+    def decode(self, tokens: np.ndarray, active: np.ndarray,
+               block_tables: np.ndarray, context_lens=None
+               ) -> Tuple[np.ndarray, float]:
+        bs = int(active.sum())
+        ctx = (float(np.mean(context_lens[active]))
+               if context_lens is not None and bs else 0.0)
+        dt = self.model.decode_time(bs, ctx)
+        return np.zeros(tokens.shape[0], np.int32), dt
+
+    def decode_multi(self, tokens: np.ndarray, active: np.ndarray,
+                     block_tables: np.ndarray, context_lens: np.ndarray,
+                     max_steps: int, time_budget: Optional[float] = None
+                     ) -> Tuple[np.ndarray, float, int]:
+        """Closed-form jump: every context grows by one token per step, so
+        the k-step duration is `StepTimeModel.decode_time_multi`; the step
+        count crossing `time_budget` is found by bisection on that O(1)
+        sum (smallest k with S(k) >= budget, capped at max_steps)."""
+        bs = int(active.sum())
+        ctx0 = (float(np.mean(context_lens[active]))
+                if context_lens is not None and bs else 0.0)
+        k = max(int(max_steps), 1)
+        m = self.model
+        if (time_budget is not None and k > 1 and
+                m.decode_time_multi(bs, ctx0, k) >= time_budget):
+            lo, hi = 1, k
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if m.decode_time_multi(bs, ctx0, mid) >= time_budget:
+                    hi = mid
+                else:
+                    lo = mid + 1
+            k = lo
+        dt = m.decode_time_multi(bs, ctx0, k)
+        return np.zeros(tokens.shape[0], np.int32), dt, k

@@ -167,7 +167,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.jamba_v0_1_52b",
             "repro_torch.configs.mixtral_8x7b",
             "repro_torch.configs.xlstm_350m",
-            "repro_torch.models.xlstm"} <= loaded
+            "repro_torch.models.xlstm",
+            "repro_torch.simulate.step_time", "repro_torch.core.sweep",
+            "repro_torch.experiments.runner"} <= loaded
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu():

@@ -10,9 +10,12 @@ Phases, each of which exits non-zero on failure:
      (HGMMA) and TMA-load (UTMALDG) instructions, the int8 library's
      integer tensor-core (IGMMA) and TMA-load ones, the paged library's
      cp.async copies (LDGSTS), the scan library's cp.async (or TMA) copies
-     and exponentials (MUFU.EX2, counted), and ptxas must report no spill
-     bytes for the int8 and scan kernels on a fresh build; SYNCS (mbarrier)
-     counted;
+     and exponentials (MUFU.EX2, counted), the fleet loop's PTX float64
+     products, sums and quotients rounded to nearest (mul.rn, add.rn,
+     div.rn) and no fused multiply-add (fma.f64) nor any product or sum
+     that ptxas may contract (its SASS counted: DFMA there divides), and
+     ptxas must report no spill bytes for the int8 and scan kernels on a
+     fresh build; SYNCS (mbarrier) counted;
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b (and the int8
      GEMM at mixtral-8x7b's lm_head; its other shapes are llama31-8b's
@@ -78,9 +81,24 @@ Phases, each of which exits non-zero on failure:
      records, every C_eff finite and positive, penalty = 1/U to 1e-9,
      C_eff non-increasing along each ladder within 5%; per (model, quant)
      C_eff at each lambda, the idle-to-saturation spread and the penalty
-     at lambda 1, per model the fp8 uplift in saturation tokens/s.
-Then `main_paths`, `sim_tier` and `kernels` JSON lines, the `nvidia-smi`
-line, and as the last line
+     at lambda 1, per model the fp8 uplift in saturation tokens/s;
+  7. fleet: the fleet-loop kernel (the jit backend's event loop, float64,
+     one thread a lane) against its plain version on the card at phase
+     6's grid and at the first 512-lane chunk of its ensemble (integers
+     equal, floats within the jit tolerance, a run with the budget cut
+     skipped rejected), timed beside its bound and the serial chain of
+     its longest lane (a one-thread probe times a dependent float64 sum
+     and quotient); then
+     that grid (42 lanes) and its 672-lane ensemble (the reference's
+     `paper_ensemble` axes: 16 arrival seeds) through `PlanRunner` on the
+     numpy fleet ("vector") and on the card ("jit", one launch a chunk of
+     at most 512 lanes): the vector records equal phase 6's, the jit
+     records within the jit tolerance of the vector ones, every lane on
+     the kernel (no fallback), launches exactly 1 and 2, the ensemble's
+     confidence bands equal within the tolerance; wall times, device ms a
+     launch, rounds of the longest lane.
+Then `main_paths`, `sim_tier`, `fleet` and `kernels` JSON lines, the
+`nvidia-smi` line, and as the last line
 `{"ok": true, "device": {...}}`. Needs no network and imports no JAX.
 """
 from __future__ import annotations
@@ -99,6 +117,7 @@ MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor FLOP/s (data sheet)
 INT8_PEAK = 1979e12       # H100 SXM dense int8 tensor OP/s (data sheet)
 FP32_PEAK = 67e12         # H100 SXM fp32 FLOP/s outside the tensor cores
+FP64_PEAK = 34e12         # H100 SXM fp64 FLOP/s outside the tensor cores
 # exponentials: 16 a clock per SM in the special-function units, 132 SMs
 # at the 1.98 GHz boost clock
 EXP_RATE = 132 * 16 * 1.98e9
@@ -156,6 +175,40 @@ MAIN_SPEC = dict(lam=4.0, n_requests=8, io_shape="chat", scale=1.0, seed=0)
 SIM_HW = "h100-sxm"
 PAPER_TRIO = ("llama31-8b", "qwen3-30b-a3b", "mixtral-8x7b")
 PAPER_CHIPS = (("llama31-8b", 1), ("qwen3-30b-a3b", 1), ("mixtral-8x7b", 2))
+# phase 7, counted from the round body (`csrc/fleet_loop.cuh`, a decode
+# round of a dense one-chip lane that does not cut its burst; a quotient
+# is one operation, a conversion, ceil, max or min none): its float64
+# operations (decode_terms 8, the mean context 1, the time to the next
+# event 2, jump 17, clock and busy area 3; a round that admits adds 18, a
+# probe of the budget cut 17, an idle round has 2), and its dependent
+# chain, each step waiting for the one before: n_occ to float64, b kv,
+# its quotient by bwd (the slope), that times the mean context, mem0,
+# compute - mem0, its quotient by the slope, ceil, max, min (m), m + k,
+# - 1, times the slope, times k - m, halved, the series, two sums to the
+# burst's time, the clock: 19 steps, 2 of them quotients
+FLEET_F64_PER_ROUND = 31
+FLEET_CHAIN = {"other": 17, "quotients": 2}
+# a one-thread probe of the float64 latencies the chain is made of
+FP64_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void chain(double* out, double x, double y, int n, int divide) {
+  double a = x;
+  if (divide) {
+#pragma unroll 16
+    for (int i = 0; i < n; ++i) a = __ddiv_rn(a, y);
+  } else {
+#pragma unroll 16
+    for (int i = 0; i < n; ++i) a = __dadd_rn(a, y);
+  }
+  *out = a;
+}
+extern "C" int fp64_chain(void* out, double x, double y, int n, int divide,
+                          void* stream) {
+  chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double*>(out), x, y, n, divide);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def fail(msg: str):
@@ -171,8 +224,8 @@ def smi_line() -> str:
 
 
 def sass_counts(lib_path: str) -> dict:
-    """Counts of tensor-core, TMA-load and mbarrier instructions in a
-    library's SASS, from the toolkit's `cuobjdump` beside `nvcc`."""
+    """Counts of tensor-core, TMA-load, mbarrier and float64 instructions
+    in a library's SASS, from the toolkit's `cuobjdump` beside `nvcc`."""
     from repro_torch.kernels import build
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
@@ -186,7 +239,8 @@ def sass_counts(lib_path: str) -> dict:
             ops.append(words[0])
     return {k: sum(o.startswith(k) for o in ops)
             for k in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS",
-                      "LDGSTS", "MUFU.EX2")}
+                      "LDGSTS", "MUFU.EX2", "MUFU.RCP64H", "DFMA",
+                      "DMUL", "DADD")}
 
 
 def device_ms(fn, arg_sets, per_graph=20, replays=5) -> float:
@@ -1069,12 +1123,8 @@ def sim_matrix():
     every C_eff is finite and positive, penalty = 1/U to 1e-9 and C_eff
     is non-increasing along each ladder within 5%."""
     import math
-    from repro_torch.core import LAMBDA_LADDER
-    from repro_torch.experiments import GridSpec, PlanRunner
-    plan = GridSpec(name="paper_h100_on_h100_sxm", archs=PAPER_TRIO,
-                    hws=(SIM_HW,), quants=("bf16", "fp8"),
-                    ladder=LAMBDA_LADDER, n_chips_by_arch=PAPER_CHIPS,
-                    seed=0, protocol="paper").expand()
+    from repro_torch.experiments import PlanRunner
+    plan = paper_grid_on_card()
     t0 = time.perf_counter()
     recs = PlanRunner(plan).run(parallel=False, backend="process")
     wall = time.perf_counter() - t0
@@ -1118,7 +1168,348 @@ def sim_matrix():
     print("sim matrix: fp8 uplift in saturation tokens/s: "
           + ", ".join(f"{m} {u:+.1%}" for m, u in uplift.items())
           + f"; {len(recs)} records in {wall:.1f} s", flush=True)
-    return {"rows": rows, "fp8_uplift": uplift, "wall_s": wall}
+    return {"rows": rows, "fp8_uplift": uplift, "wall_s": wall}, recs
+
+
+def paper_grid_on_card(ensemble: bool = False):
+    """The reference's `paper_h100` grid (experiments/plans.py) on
+    `h100-sxm`: 42 cells, `paper` protocol; with `ensemble`, its
+    `paper_ensemble` axes instead (16 arrival seeds, `quick` protocol) on
+    the same models, quants and chips: 672 cells."""
+    from repro_torch.core import LAMBDA_LADDER
+    from repro_torch.experiments import GridSpec
+    kw = (dict(protocol="quick", seed_offsets=tuple(range(16)))
+          if ensemble else dict(protocol="paper"))
+    return GridSpec(name="paper_ensemble_on_h100_sxm" if ensemble
+                    else "paper_h100_on_h100_sxm", archs=PAPER_TRIO,
+                    hws=(SIM_HW,), quants=("bf16", "fp8"),
+                    ladder=LAMBDA_LADDER, n_chips_by_arch=PAPER_CHIPS,
+                    seed=0, **kw).expand()
+
+
+def fleet_inputs(cells, device):
+    """The fleet loop's packed inputs for plan cells' lanes (every lane of
+    these grids rides the loop), as the jit backend packs them."""
+    from repro_torch.serving import fleet_jit
+    from repro_torch.serving.arrivals import synth_arrays
+    from repro_torch.serving.fleet import FleetPoint
+    pts = [FleetPoint(engine=c.engine_spec(), arrivals=c.arrival_spec(),
+                      warmup=c.warmup, horizon=c.horizon,
+                      failure_times=c.failure_times, **c.record_kw())
+           for c in cells]
+    md, ec, r_arr, cap, *_ = fleet_jit._pack(
+        pts, [synth_arrays(p.arrivals) for p in pts])
+
+    def on(d):
+        return {k: torch.as_tensor(v, device=device) for k, v in d.items()}
+    return on(md), on(ec), torch.as_tensor(r_arr, device=device), cap
+
+
+def fleet_gate(got, ref):
+    """The fleet loop's outputs against its plain version's (the dump
+    column of the logs left out): (outputs outside the jit tolerance or,
+    for integers, not equal; float entries not bitwise equal; the largest
+    absolute difference of a float entry)."""
+    from repro_torch.serving.precision import jit_tolerance
+    rtol, atol = jit_tolerance()
+    bad, inexact, err = [], 0, 0.0
+    for k, r in ref.items():
+        g, r = got[k].cpu(), r.cpu()
+        if r.ndim == 2:
+            g, r = g[:, :-1], r[:, :-1]
+        if r.dtype == torch.float64:
+            inexact += int((g != r).sum())
+            err = max(err, float((g - r).abs().max()))
+            if not torch.allclose(g, r, rtol=rtol, atol=atol):
+                bad.append(k)
+        elif not torch.equal(g, r):
+            bad.append(k)
+    return bad, inexact, err
+
+
+def fp64_latency_ns() -> dict:
+    """ns of one dependent float64 sum and of one dependent float64
+    quotient (`__ddiv_rn`) on this card: `FP64_PROBE`, built with the
+    kernels' flags under build/, runs one thread through a chain of 2^20
+    sums, then one of 2^16 quotients, each launch timed with CUDA events
+    after a warm-up launch."""
+    import ctypes
+    import math
+    from repro_torch.kernels import build
+    d = build.BUILD_DIR / "fp64_probe"
+    d.mkdir(parents=True, exist_ok=True)
+    src, lib_path = d / "fp64_chain.cu", d / "libfp64_chain.so"
+    src.write_text(FP64_PROBE)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
+                    str(src)], check=True, capture_output=True, text=True,
+                   timeout=300)
+    fn = ctypes.CDLL(str(lib_path)).fp64_chain
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_double, ctypes.c_double,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ns = {}
+    for what, y, n, divide in (("sum", 1e-3, 1 << 20, 0),
+                               ("quotient", 1.0000001, 1 << 16, 1)):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for timed in (False, True):
+            if timed:
+                e0.record()
+            err = fn(out.data_ptr(), 1.0, y, n, divide, stream)
+            if timed:
+                e1.record()
+            if err:
+                fail(f"the float64 latency probe: CUDA error {err}")
+        torch.cuda.synchronize()
+        if not math.isfinite(float(out.item())):
+            fail(f"the float64 latency probe's {what} chain is not finite")
+        ns[what] = e0.elapsed_time(e1) * 1e6 / n
+    return ns
+
+
+def check_fleet_loop():
+    """Phase 7's kernel check: the fleet loop on the card against its
+    plain version on the card, on the packed inputs of phase 6's 42-cell
+    grid and of the first 512-lane chunk of its 672-lane ensemble (the
+    shapes the jit backend gives it there): every integer output equal,
+    every float within the jit tolerance (the count of float entries that
+    are not bitwise equal printed); the grid's run with the budget cut
+    skipped (the planted fault) must fail that gate. Then at each shape
+    the kernel timed (CUDA events around one launch; the median of 3), the
+    plain version timed once (a Python loop of small kernels over the
+    rounds), and the bound: the larger of the bytes (inputs once, outputs
+    once, over 3.35 TB/s) and the float64 operations of the rounds this
+    run took (`FLEET_F64_PER_ROUND` each, over 34 TFLOP/s). Beside it the
+    serial chain of the longest lane, which neither term sees: its rounds
+    times a decode round's dependent chain (`FLEET_CHAIN`), each step at
+    the latency `fp64_latency_ns` measures (its quotients at the
+    quotient's, the rest at the sum's)."""
+    from repro_torch.kernels.fleet_loop.kernel import fleet_loop_kernel
+    from repro_torch.kernels.fleet_loop.ref import fleet_loop_ref
+    lat = fp64_latency_ns()
+    chain_ns = (FLEET_CHAIN["other"] * lat["sum"]
+                + FLEET_CHAIN["quotients"] * lat["quotient"])
+    print(f"kernel fleet_loop: a dependent float64 sum {lat['sum']:.3f} "
+          f"ns, quotient {lat['quotient']:.3f} ns (one-thread probe); a "
+          f"decode round's chain {chain_ns:.1f} ns", flush=True)
+    shapes = []
+    for what, cells in (
+            ("paper_h100", paper_grid_on_card().cells),
+            ("ensemble chunk 1", paper_grid_on_card(True).cells[:512])):
+        md, ec, r_arr, cap = fleet_inputs(cells, "cuda")
+
+        def timed(fn):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(md, ec, r_arr, cap)
+            e1.record()
+            torch.cuda.synchronize()
+            return out, e0.elapsed_time(e1)
+
+        got, _ = timed(fleet_loop_kernel)
+        ref, plain_ms = timed(fleet_loop_ref)
+        bad, inexact, err = fleet_gate(got, ref)
+        if bad or got["live"].any() or got["stall"].any():
+            fail(f"fleet_loop [{what}] disagrees with its plain version in "
+                 f"{bad} (live {int(got['live'].sum())}, stall "
+                 f"{int(got['stall'].sum())})")
+        fault = ""
+        if what == "paper_h100":
+            fleet_loop_kernel.skip_budget_cut = True
+            try:
+                faulty, _ = timed(fleet_loop_kernel)
+            finally:
+                fleet_loop_kernel.skip_budget_cut = False
+            fault_bad, _, fault_err = fleet_gate(faulty, ref)
+            if not fault_bad:
+                fail("fleet_loop: the gate accepts a planted fault (the "
+                     "budget cut skipped)")
+            fault = (f"; planted fault (the budget cut skipped): "
+                     f"{fault_bad} outside it, max abs {fault_err:.3g} "
+                     f"(rejected)")
+            del faulty
+        ms = sorted(timed(fleet_loop_kernel)[1] for _ in range(3))[1]
+        B, W = r_arr.shape
+        rounds = got["rounds"]
+        nbytes = (18 + 8 + 1) * 8 * B + r_arr.numel() * 8 \
+            + 4 * B * W * 8 + (2 + 4 * 8 + 2 * 8) * B
+        longest = int(rounds.max())
+        terms = {"bytes": nbytes / MEM_BW * 1e3,
+                 "fp64 operations": int(rounds.sum()) * FLEET_F64_PER_ROUND
+                 / FP64_PEAK * 1e3,
+                 "serial chain": longest * chain_ns * 1e-6}
+        v = {"shape": f"{what} on {SIM_HW}: {B} lanes ({len(cells)} padded "
+                      f"to a power of two), W {W}",
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(terms["bytes"], terms["fp64 operations"]),
+             "bound_by": "bytes" if terms["bytes"] >= terms[
+                 "fp64 operations"] else "operations",
+             "library_ms": None, "bound_terms_ms": terms,
+             "inexact_entries": inexact, "rounds_longest_lane": longest,
+             "rounds_total": int(rounds.sum()),
+             "ns_per_round": ms * 1e6 / longest,
+             "x_serial_chain": ms / terms["serial chain"]}
+        print(f"kernel fleet_loop [{v['shape']}]: max_abs_err={err:.3g}, "
+              f"{inexact} float entries not bitwise equal, within the jit "
+              f"tolerance{fault}", flush=True)
+        print(f"kernel fleet_loop [{v['shape']}]: ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} library_ms=None bound_ms={v['bound_ms']:.4f} "
+              f"({v['bound_by']}; {terms}); longest lane {longest} rounds, "
+              f"{v['ns_per_round']:.0f} ns a round, "
+              f"{v['x_serial_chain']:.2f}x its serial chain; no PyTorch "
+              f"call runs an event loop", flush=True)
+        shapes.append(v)
+        del md, ec, r_arr, got, ref
+        torch.cuda.empty_cache()
+    row = {"name": "fleet_loop", "route": "cuda",
+           "source": "src/repro_torch/csrc/fleet_loop.cu",
+           "replaces": "src/repro/serving/fleet_jit.py:149"}
+    row.update(shapes[0])
+    row["max_abs_err"] = max(v["max_abs_err"] for v in shapes)
+    row["fp64_latency_ns"] = lat
+    row["variants"] = shapes
+    return row
+
+
+def hold_records(oracle, got, what):
+    """The jit backend's records against the numpy fleet's: every
+    non-float field equal, every float within the jit tolerance. Returns
+    (float fields, those not bitwise equal)."""
+    import dataclasses
+    import math
+    from repro_torch.serving.precision import jit_tolerance
+    rtol, atol = jit_tolerance()
+    if len(oracle) != len(got):
+        fail(f"fleet {what}: {len(got)} records, expected {len(oracle)}")
+    n_float = inexact = 0
+    for a, b in zip(oracle, got):
+        for k, va in dataclasses.asdict(a).items():
+            vb = getattr(b, k)
+            if isinstance(va, float):
+                n_float += 1
+                inexact += repr(va) != repr(vb)
+                ok = (math.isnan(vb) if math.isnan(va) else
+                      math.isclose(va, vb, rel_tol=rtol, abs_tol=atol))
+            else:
+                ok = va == vb
+            if not ok:
+                fail(f"fleet {what}: {k} of {a.model} {a.quant} lambda "
+                     f"{a.lam}: {vb!r}, the numpy fleet {va!r}")
+    return n_float, inexact
+
+
+def _close_tree(a, b, rtol, atol) -> bool:
+    import math
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            _close_tree(a[k], b[k], rtol, atol) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(
+            _close_tree(x, y, rtol, atol) for x, y in zip(a, b))
+    if isinstance(a, float):
+        return (math.isnan(b) if math.isnan(a) else
+                math.isclose(a, b, rel_tol=rtol, abs_tol=atol))
+    return a == b
+
+
+def fleet_phase(h100_recs):
+    """Phase 7, the jit backend's main paths: phase 6's 42-cell grid, then
+    its 672-cell ensemble (16 arrival seeds), each through `PlanRunner`
+    on the numpy fleet (`"vector"`, serially, timed) and on the card
+    (`"jit"`: one launch of the fleet-loop kernel a chunk of at most 512
+    lanes). Gates: the vector records equal phase 6's process records
+    (`repr`); the jit records hold every integer field exactly and every
+    float within the jit tolerance of the vector ones (the count of
+    fields not bitwise equal printed); every lane rode the kernel (no
+    `JitFallback`, none routed to numpy); launches exactly 1 and 2; the
+    ensemble's `analyze.ensemble_bands` of both record sets agree within
+    the jit tolerance. Each launch's device time comes from CUDA events
+    around it (a wrapper of the kernel in this script)."""
+    from repro_torch.experiments import PlanRunner
+    from repro_torch.experiments.analyze import ensemble_bands
+    from repro_torch.kernels.fleet_loop import ops
+    from repro_torch.kernels.fleet_loop.kernel import fleet_loop_kernel
+    from repro_torch.serving import fleet_jit
+    from repro_torch.serving.precision import jit_tolerance
+    launches_log = []
+    kernel = ops.fleet_loop_kernel
+
+    def timed_kernel(md, ec, r_arr, cap):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = kernel(md, ec, r_arr, cap)
+        e1.record()
+        torch.cuda.synchronize()
+        launches_log.append({"lanes": int(r_arr.shape[0]),
+                             "W": int(r_arr.shape[1]),
+                             "ms": e0.elapsed_time(e1),
+                             "rounds_longest_lane":
+                                 int(out["rounds"].max())})
+        return out
+
+    ops.fleet_loop_kernel = timed_kernel
+    out = {"launches": {}, "lanes_by_path": {}, "ms_per_launch": {}}
+    try:
+        for name, plan in (("paper_h100", paper_grid_on_card()),
+                           ("ensemble", paper_grid_on_card(True))):
+            n = len(plan.cells)
+            t0 = time.perf_counter()
+            vector = PlanRunner(plan).run(parallel=False, backend="vector")
+            vector_s = time.perf_counter() - t0
+            if name == "paper_h100":
+                bad = [i for i, (a, b) in enumerate(zip(h100_recs, vector))
+                       if repr(a) != repr(b)]
+                if len(vector) != len(h100_recs) or bad:
+                    fail(f"fleet: vector records differ from phase 6's "
+                         f"process records at {bad}")
+            del launches_log[:]
+            lanes0 = dict(fleet_jit.LANES)
+            fleet_loop_kernel.launches = 0
+            t0 = time.perf_counter()
+            jit = PlanRunner(plan).run(parallel=False, backend="jit")
+            jit_s = time.perf_counter() - t0
+            launches = fleet_loop_kernel.launches
+            lanes = {k: fleet_jit.LANES[k] - lanes0[k] for k in lanes0}
+            want = -(-n // 512)
+            if lanes != {"loop": n, "fallback": 0, "numpy": 0} or \
+                    launches != want:
+                fail(f"fleet {name}: lanes {lanes} and {launches} "
+                     f"launches; expected every one of {n} lanes on the "
+                     f"kernel in {want} launch(es)")
+            n_float, inexact = hold_records(vector, jit, name)
+            row = {"cells": n, "vector_s": vector_s, "jit_s": jit_s,
+                   "float_fields": n_float, "inexact_fields": inexact,
+                   "launches": list(launches_log)}
+            if name == "ensemble":
+                bv, bj = ensemble_bands(vector), ensemble_bands(jit)
+                if not bv or not _close_tree(bv, bj, *jit_tolerance()):
+                    fail("fleet ensemble: the jit records' ensemble bands "
+                         "differ from the numpy fleet's")
+                row["bands"] = len(bv)
+                row["widest_c_eff_halfwidth"] = max(
+                    r["max_rel_halfwidth_c_eff"] for r in bv)
+            out[name] = row
+            out["launches"][name] = launches
+            out["lanes_by_path"][name] = n
+            out["ms_per_launch"][name] = [x["ms"] for x in launches_log]
+            longest = max(x["rounds_longest_lane"] for x in launches_log)
+            ns_round = max(x["ms"] for x in launches_log) * 1e6 / longest
+            print(f"fleet {name}: {n} cells; vector {vector_s:.3f} s, jit "
+                  f"{jit_s:.3f} s ({launches} launch(es): "
+                  + ", ".join(f"{x['lanes']} lanes W {x['W']} "
+                              f"{x['ms']:.3f} ms, longest lane "
+                              f"{x['rounds_longest_lane']} rounds"
+                              for x in launches_log)
+                  + f"; {ns_round:.0f} ns a round); {inexact} of {n_float} float fields not "
+                  f"bitwise equal to the numpy fleet's, all within "
+                  f"{jit_tolerance()}"
+                  + (f"; {row['bands']} ensemble bands agree, widest C_eff "
+                     f"half-width {row['widest_c_eff_halfwidth']:.4f}"
+                     if "bands" in row else ""), flush=True)
+    finally:
+        ops.fleet_loop_kernel = kernel
+    return out
 
 
 def main():
@@ -1175,6 +1566,19 @@ def main():
     print(f"build: ssm_scan SASS: {sass}", flush=True)
     if not (sass["LDGSTS"] or sass["UTMALDG"]):
         fail(f"ssm_scan's SASS holds no cp.async or TMA copy: {sass}")
+    sass = sass_counts(str(build.library_path("fleet_loop")))
+    ptx = {k: v for k, v in build.ptx_opcodes("fleet_loop").items()
+           if k.endswith(".f64") and k.split(".")[0] in (
+               "mul", "add", "sub", "div", "fma", "mad")}
+    print(f"build: fleet_loop PTX: {ptx}; SASS: {sass}", flush=True)
+    contracted = {k: v for k, v in ptx.items()
+                  if k.split(".")[0] in ("fma", "mad") or ".rn." not in k}
+    if contracted or not all(ptx.get(f"{op}.rn.f64") for op in (
+            "mul", "add", "div")):
+        fail(f"fleet_loop's PTX must round every float64 product, sum and "
+             f"quotient to nearest (mul.rn, add.rn, div.rn) and hold no "
+             f"fused multiply-add nor a product or sum ptxas may contract: "
+             f"{ptx}")
     for name in ("int8_matmul", "ssm_scan"):    # empty log: built before
         spills = [line.strip() for line in logs[name].splitlines()
                   if "spill" in line and not line.strip().startswith(
@@ -1267,12 +1671,20 @@ def main():
     phase("sim tier")
     t0 = time.perf_counter()
     sims = [sim_against_real(p, log) for p, log in zip(paths, steps)]
-    matrix = sim_matrix()
+    matrix, h100_recs = sim_matrix()
     print(f"sim tier: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 7. the fleet's event loop on the card: the jit backend
+    phase("fleet")
+    t0 = time.perf_counter()
+    fleet_check = check_fleet_loop()
+    fleet = fleet_phase(h100_recs)
+    print(f"fleet: {time.perf_counter() - t0:.1f} s", flush=True)
     phase("done")
     print(json.dumps({"main_paths": paths}))
     print(json.dumps({"sim_tier": {"against_real": sims,
                                    "matrix": matrix}}))
+    print(json.dumps({"fleet": fleet}))
 
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1303,6 +1715,10 @@ def main():
                             if k in v}
                            for v in vs]
         rows.append(row)
+    rows.append(dict(fleet_check, launches=sum(fleet["launches"].values()),
+                     launches_by_path=fleet["launches"],
+                     lanes=fleet["lanes_by_path"],
+                     ms_per_launch=fleet["ms_per_launch"]))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

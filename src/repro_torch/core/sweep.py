@@ -197,9 +197,9 @@ def parallel_sweep(engine_factory, *,
     """`lambda_sweep` with independent ladder points fanned across a
     process pool; records come back in ladder order with identical values
     (same deterministic per-point seeds, same per-point protocol).
-    Only `backend="process"` runs in the port: the fleet backends
-    (`"vector"`, `"jit"`) raise `NotImplementedError`
-    (`experiments.runner.execute_cells`).
+    `backend="vector"` runs SimEngineSpec ladders through the fleet
+    simulator instead — same records, lanes x cores; `backend="jit"`
+    through the fleet-loop kernel on the card (`experiments.runner`).
 
     Start method (`mp_context=None`): `fork` when torch has not been
     imported into this process (sim-tier parents stay torch-free because

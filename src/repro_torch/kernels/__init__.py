@@ -4,6 +4,9 @@
   flash_attention/  causal prefill attention       (csrc/flash_attention.cu)
   int8_matmul/      int8 GEMM, fused dequantization (csrc/int8_matmul.cu)
   ssm_scan/         Mamba selective scan, fp32     (csrc/ssm_scan.cu)
+  fleet_loop/       the fleet's event loop, float64 (csrc/fleet_loop.cu):
+                    no Pallas counterpart; it replaces the jit fleet's
+                    compiled `lax.while_loop`
 
 Each subpackage has `ref.py` (plain version), `kernel.py` (ctypes binding
 with a launch count) and `ops.py` (dispatch: kernel for CUDA tensors,

@@ -16,6 +16,7 @@ import os
 import re
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -91,6 +92,30 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
                            "\n".join(logs[n] for n in failed))
     return logs
+
+
+def ptx_opcodes(name: str) -> Counter:
+    """How often each PTX opcode (`mul.rn.f64`, `fma.rn.f64`, ...) occurs
+    in what nvcc's front end makes of `csrc/<name>.cu` for sm_90a: what the
+    source asked for, before `ptxas` lowers it (the library embeds no
+    PTX). The file is written beside the library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = library_path(name).with_suffix(".ptx")
+    if not out.exists():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([_nvcc(), "-arch=compute_90a", "-std=c++17", "-ptx",
+                        "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, out)
+    ops = Counter()
+    for line in out.read_text().splitlines():   # [@%p1] opcode operands;
+        words = line.split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words and words[0][0].isalpha() and not line.rstrip().endswith(
+                ("{", ":")):
+            ops[words[0].rstrip(";")] += 1
+    return ops
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -526,3 +526,149 @@ def test_ssm_wrapper_refuses_what_the_kernel_does_not_take(gen):
         ssm_scan(*small)
     with pytest.raises(ValueError):       # one operand on the CPU
         ssm_scan(*args[:-1], args[-1].cpu())
+
+
+# -- the fleet loop (float64 event loop, one thread a lane) -----------------
+#
+# Held to its plain version on the CPU, on the same packed inputs of mini
+# plans and of the paper's 42-cell `paper_h100` grid: every integer output
+# exactly, every float within the jit tolerance (the kernel has no FMA and
+# divides in integers, so they should be equal bit for bit). Skipping the
+# budget cut must break that.
+
+def _fleet_inputs(plan_name):
+    from repro_torch.experiments import get_plan
+    from repro_torch.serving import fleet_jit
+    from repro_torch.serving.arrivals import synth_arrays
+    from repro_torch.serving.fleet import FleetPoint
+    pts = [FleetPoint(engine=c.engine_spec(), arrivals=c.arrival_spec(),
+                      warmup=c.warmup, horizon=c.horizon,
+                      failure_times=c.failure_times, **c.record_kw())
+           for c in get_plan(plan_name).cells]
+    md, ec, r_arr, cap, *_ = fleet_jit._pack(
+        pts, [synth_arrays(p.arrivals) for p in pts])
+    return pts, md, ec, r_arr, cap
+
+
+def _on(d, device):
+    return {k: torch.as_tensor(v, device=device) for k, v in d.items()}
+
+
+def _fleet_mismatch(got, ref, W):
+    """Outputs (but the dump column W - 1) outside the jit tolerance, and
+    float entries that are not bitwise equal."""
+    from repro_torch.serving.precision import X64_TOLERANCE
+    rtol, atol = X64_TOLERANCE
+    bad, inexact = [], 0
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if r.ndim == 2:
+            g, r = g[:, :W - 1], r[:, :W - 1]
+        if r.dtype == torch.float64:
+            inexact += int((g != r).sum())
+            if not torch.allclose(g, r, rtol=rtol, atol=atol):
+                bad.append(k)
+        elif not torch.equal(g, r):
+            bad.append(k)
+    return bad, inexact
+
+
+@pytest.mark.parametrize("plan_name", ["mini_2x2", "mini_crosshw",
+                                       "mini_ensemble", "paper_h100"])
+def test_fleet_loop_kernel_matches_plain(gen, plan_name):
+    from repro_torch.kernels.fleet_loop.kernel import fleet_loop_kernel
+    from repro_torch.kernels.fleet_loop.ops import fleet_loop
+    from repro_torch.kernels.fleet_loop.ref import fleet_loop_ref
+    _pts, md, ec, r_arr, cap = _fleet_inputs(plan_name)
+    n = fleet_loop_kernel.launches
+    got = fleet_loop(_on(md, "cuda"), _on(ec, "cuda"),
+                     torch.as_tensor(r_arr, device="cuda"), cap)
+    torch.cuda.synchronize()
+    assert fleet_loop_kernel.launches == n + 1
+    ref = fleet_loop_ref(_on(md, "cpu"), _on(ec, "cpu"),
+                         torch.as_tensor(r_arr), cap)
+    bad, inexact = _fleet_mismatch(got, ref, r_arr.shape[1])
+    assert not bad and inexact == 0, (bad, inexact)
+    assert not got["live"].any() and int(got["rounds"].max()) > 1
+
+
+def test_fleet_loop_rejects_skipped_budget_cut(gen):
+    from repro_torch.kernels.fleet_loop.kernel import fleet_loop_kernel
+    from repro_torch.kernels.fleet_loop.ref import fleet_loop_ref
+    _pts, md, ec, r_arr, cap = _fleet_inputs("paper_h100")
+    fleet_loop_kernel.skip_budget_cut = True
+    try:
+        got = fleet_loop_kernel(_on(md, "cuda"), _on(ec, "cuda"),
+                                torch.as_tensor(r_arr, device="cuda"), cap)
+        torch.cuda.synchronize()
+    finally:
+        fleet_loop_kernel.skip_budget_cut = False
+    ref = fleet_loop_ref(_on(md, "cpu"), _on(ec, "cpu"),
+                         torch.as_tensor(r_arr), cap)
+    bad, _ = _fleet_mismatch(got, ref, r_arr.shape[1])
+    assert "t" in bad
+
+
+def test_fleet_loop_library_holds_no_dfma(gen):
+    # nothing contracted into a fused multiply-add: the PTX rounds every
+    # float64 product, sum and quotient on its own (the DFMAs of the SASS
+    # are ptxas's expansion of div.rn.f64, which rounds correctly)
+    from repro_torch.kernels import build
+    f64 = {k: v for k, v in build.ptx_opcodes("fleet_loop").items()
+           if k.endswith(".f64")}
+    assert f64.get("mul.rn.f64") and f64.get("add.rn.f64") \
+        and f64.get("div.rn.f64"), f64
+    assert not [k for k in f64 if k.split(".")[0] in ("fma", "mad")], f64
+    assert not [k for k in f64 if k.split(".")[0] in ("mul", "add", "sub")
+                and ".rn." not in k], f64
+
+
+def test_jit_run_points_on_the_card_matches_numpy(gen):
+    import dataclasses
+    import math
+    from repro_torch.serving import fleet_jit
+    from repro_torch.serving.fleet import fleet_run_points
+    from repro_torch.serving.precision import X64_TOLERANCE
+    pts, *_ = _fleet_inputs("mini_crosshw")
+    before = dict(fleet_jit.LANES)
+    got = fleet_jit.jit_run_points(pts)
+    assert fleet_jit.LANES["loop"] - before["loop"] == len(pts)
+    assert fleet_jit.LANES["fallback"] == before["fallback"]
+    for a, b in zip(fleet_run_points(pts), got):
+        for k, va in dataclasses.asdict(a).items():
+            vb = getattr(b, k)
+            if isinstance(va, float) and not math.isnan(va):
+                assert math.isclose(va, vb, rel_tol=X64_TOLERANCE[0],
+                                    abs_tol=X64_TOLERANCE[1]), (k, va, vb)
+            else:
+                assert repr(va) == repr(vb), (k, va, vb)
+
+
+def test_jit_run_points_on_the_card_raises_where_the_loop_does_not_finish(
+        gen, monkeypatch):
+    from repro_torch.kernels.fleet_loop.kernel import fleet_loop_kernel
+    from repro_torch.serving import fleet_jit
+    pts, *_ = _fleet_inputs("mini_2x2")
+    monkeypatch.setattr(fleet_jit, "_CAP_FLOOR", 1)
+    monkeypatch.setattr(fleet_jit, "_CAP_PER_REQ", 0)
+    before, n = dict(fleet_jit.LANES), fleet_loop_kernel.launches
+    with pytest.raises(fleet_jit.JitFallback, match="did not converge"):
+        fleet_jit.jit_run_points(pts)
+    assert fleet_loop_kernel.launches == n + 1
+    assert fleet_jit.LANES == before
+
+
+def test_fleet_loop_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    from repro_torch.kernels.fleet_loop.kernel import fleet_loop_kernel
+    _pts, md, ec, r_arr, cap = _fleet_inputs("mini_2x2")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fleet_loop_kernel(_on(md, "cuda"), _on(ec, "cuda"),
+                          torch.as_tensor(r_arr), cap)
+    with pytest.raises(TypeError, match="float64"):
+        fleet_loop_kernel(_on(md, "cuda"), _on(ec, "cuda"),
+                          torch.as_tensor(r_arr, device="cuda").float(),
+                          cap)
+    bad = dict(ec, uplen=ec["uplen"] * 0)
+    with pytest.raises(ValueError, match="uplen"):
+        fleet_loop_kernel(_on(md, "cuda"), _on(bad, "cuda"),
+                          torch.as_tensor(r_arr, device="cuda"), cap)

@@ -169,7 +169,19 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.xlstm_350m",
             "repro_torch.models.xlstm",
             "repro_torch.simulate.step_time", "repro_torch.core.sweep",
-            "repro_torch.experiments.runner"} <= loaded
+            "repro_torch.experiments.runner",
+            "repro_torch.configs.phi3_medium_14b",
+            "repro_torch.serving.fleet", "repro_torch.serving.fleet_jit",
+            "repro_torch.serving.autoscale", "repro_torch.serving.precision",
+            "repro_torch.kernels.fleet_loop.kernel",
+            "repro_torch.kernels.fleet_loop.ops",
+            "repro_torch.kernels.fleet_loop.ref",
+            "repro_torch.experiments.plans", "repro_torch.experiments.analyze",
+            "repro_torch.experiments.run", "repro_torch.planner.curves",
+            "repro_torch.planner.optimize", "repro_torch.planner.allocate",
+            "repro_torch.planner.portfolio", "repro_torch.planner.routing",
+            "repro_torch.planner.tables", "repro_torch.planner.day",
+            "repro_torch.planner.__main__"} <= loaded
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu():

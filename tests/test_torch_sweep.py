@@ -7,8 +7,8 @@ All numpy on both sides, so exact equality (a NaN matches a NaN):
 (f) CSVs: each side reads the other's, and both write the same bytes;
 (g) `Cell` seeds, ids and spec hashes of a ladder plan and a grid;
 (h) the `ExperimentStore` files of a small plan, byte for byte.
-Port-only: the fleet backends are refused, and a sim-only process of the
-port never imports torch.
+Port-only: a sim-only process of the port, the fleet's vector backend
+included, never imports torch.
 """
 import dataclasses
 import math
@@ -160,21 +160,10 @@ def test_store_files_are_byte_identical(tmp_path):
     assert _canon(recs) == _canon(ref_recs)
 
 
-@pytest.mark.parametrize("backend", ["vector", "jit"])
-def test_fleet_backends_are_refused(backend):
-    plan = _mini(texp, archs=("llama31-8b",), hws=("tpu-v5e",))
-    with pytest.raises(NotImplementedError, match="fleet"):
-        texp.PlanRunner(plan).run(parallel=False, backend=backend)
-    with pytest.raises(NotImplementedError, match="fleet"):
-        tcore.parallel_sweep(tcore.SimEngineSpec("llama31-8b"),
-                             ladder=(1,), backend=backend)
-    with pytest.raises(ValueError, match="unknown backend"):
-        texp.PlanRunner(plan).run(parallel=False, backend="gpu")
-
-
 def test_sim_only_process_never_imports_torch():
     """A sim-tier sweep of the port runs in a process that holds no torch,
-    and its pool forks (the runner forks only a torch-free parent)."""
+    and its pool forks (the runner forks only a torch-free parent); so
+    does a plan on the fleet's vector backend, serial and pooled."""
     code = (
         "import sys\n"
         "from repro_torch.core.sweep import SimEngineSpec, run_point, "
@@ -188,6 +177,15 @@ def test_sim_only_process_never_imports_torch():
         "ladder=(1, 10), requests_per_point=lambda lam: 20, "
         "warmup_per_point=lambda lam: 0, max_workers=2)\n"
         "assert [r.n_completed for r in recs] == [20, 20], recs\n"
+        "from repro_torch.experiments import PlanRunner, get_plan\n"
+        "from repro_torch.experiments.runner import execute_cells\n"
+        "plan = get_plan('mini_crosshw')\n"
+        "recs = PlanRunner(plan).run(parallel=False, backend='vector')\n"
+        "assert len(recs) == 16 and all(r.n_completed for r in recs)\n"
+        "cells = list(plan.cells) + list(get_plan('mini_ensemble').cells)\n"
+        "recs = execute_cells(cells, parallel=True, max_workers=2, "
+        "backend='vector')\n"
+        "assert len(recs) == 32, recs\n"
         "print(default_mp_context())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('torch', 'jax', 'repro'))\n"

@@ -18,7 +18,8 @@ Phases, each of which exits non-zero on failure:
      fresh build; SYNCS (mbarrier) counted;
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b (and the int8
-     GEMM at mixtral-8x7b's lm_head; its other shapes are llama31-8b's
+     GEMM at mixtral-8x7b's and phi3-medium-14b's lm_heads, N 32000 and
+     100352; its other shapes are llama31-8b's
      and its attention has llama31-8b's heads). The attention
      kernels in bf16 with |kernel - plain| <= 1e-3 + 2**-7 |plain| on every
      element (one bf16 step of the result; `repro_torch.kernels.bf16_gate`;
@@ -45,20 +46,23 @@ Phases, each of which exits non-zero on failure:
      and ratio to SDPA; the int8 GEMM with its TOP/s and `torch._int_mm`
      on the K-major weight and on a row-major copy;
   4. small-input checks: narrow models (llama31-8b in bf16 and in int8,
-     qwen3-30b-a3b in bf16, mixtral-8x7b in int8 with its own routing, 2
-     layers; jamba-v0.1-52b in bf16 and int8, 8 layers; xlstm-350m in
+     qwen3-30b-a3b in bf16, mixtral-8x7b in int8 with its own routing,
+     phi3-medium-14b in int8, 2 layers; jamba-v0.1-52b in bf16 and int8, 8
+     layers; xlstm-350m in
      bf16, 4 layers, held by its states and fp32 logits) through the
      kernels on the card against the same models through the plain
-     versions on the CPU;
+     versions on the CPU; every check is printed, and a failed one fails
+     the run once the later phases have run;
   5. main paths: full-width models (random weights from a seed) through
      `build_engine` -> `Engine` -> `RealExecutor` -> `CostMeter`, each
      serving 8 chat requests (512:256, lambda 4/s, seed 0) that overlap:
      llama31-8b in bf16 and int8 (32 layers), qwen3-30b-a3b in bf16, int8
      and fp8 (48 layers), jamba-v0.1-52b in int8 and fp8 (32 layers: 4
      attention, 28 Mamba, 16 MoE), mixtral-8x7b in int8 and fp8 (32
-     layers, all MoE: 8 experts, top-2) and xlstm-350m in bf16 (24 layers:
+     layers, all MoE: 8 experts, top-2), xlstm-350m in bf16 (24 layers:
      12 mLSTM, 12 sLSTM; tied embeddings; no kernel of the port on its
-     path). Every request must finish with its token count, the K/V pools
+     path) and phi3-medium-14b in bf16 and int8 (40 layers, d_model 5120,
+     40/10 heads). Every request must finish with its token count, the K/V pools
      and recurrent states must hold no NaN and no infinity but the -inf
      mLSTM stabiliser of a slot that never prefilled, and the kernels'
      launch counts, set to 0 before each path and read after it, must be
@@ -66,7 +70,7 @@ Phases, each of which exits non-zero on failure:
      launch per attention layer per decode step, one scan launch per
      Mamba layer per call and, under int8, one int8 launch per `linear`
      per call (225 for llama31-8b, 193 for qwen3-30b-a3b, 177 for
-     jamba-v0.1-52b, 129 for mixtral-8x7b). The meter prices at the
+     jamba-v0.1-52b, 129 for mixtral-8x7b, 281 for phi3-medium-14b). The meter prices at the
      card's hardware-book entry (`launch.serve.real_tier_hw`: `h100-sxm`),
      and each prefill call's and decode step's work and wall time is
      logged for phase 6;
@@ -96,8 +100,19 @@ Phases, each of which exits non-zero on failure:
      records within the jit tolerance of the vector ones, every lane on
      the kernel (no fallback), launches exactly 1 and 2, the ensemble's
      confidence bands equal within the tolerance; wall times, device ms a
-     launch, rounds of the longest lane.
-Then `main_paths`, `sim_tier`, `fleet` and `kernels` JSON lines, the
+     launch, rounds of the longest lane;
+  8. live validation, the paper's six-phase run (§6.7): the real half of
+     `examples/torch_serve_cost_meter.py` on the full-width llama31-8b in
+     bf16 through `build_engine` (rates 0.5, 1, 2, 4, 2, 0.5 req/s, 20 s of
+     arrivals each, chat scaled to 192 : 96; 200 requests) with the meter
+     ticking, each tick, each phase's peak in flight and queue, and the
+     summary printed; gates: every request
+     finishes, tokens conserved, flash and paged launches exact (counts set
+     to 0 before it), K/V finite, the meter's average finite and positive.
+     Then the example's sim half on `h100-sxm`, and the same traffic and
+     engine on the sim tier beside the real readings.
+Then `main_paths`, `sim_tier`, `fleet`, `live_validation` and `kernels`
+JSON lines, the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {...}}`. Needs no network and imports no JAX.
 """
@@ -152,6 +167,7 @@ INT8_SHAPES = [
     (8, 4096, 65536, "jamba-v0.1-52b lm_head"),
     (512, 4096, 14336, "llama31-8b prefill gate/up, one prompt"),
     (8, 4096, 32000, "mixtral-8x7b lm_head"),
+    (8, 5120, 100352, "phi3-medium-14b lm_head"),
 ]
 # the selective scan at jamba-v0.1-52b's served shapes (B, S, d_inner, N):
 # prefill of 8 slots at Lp 512 from a zero state, and a decode step
@@ -160,14 +176,15 @@ MAIN_PATHS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
               ("qwen3-30b-a3b", "bf16"), ("qwen3-30b-a3b", "int8"),
               ("qwen3-30b-a3b", "fp8"), ("jamba-v0.1-52b", "int8"),
               ("jamba-v0.1-52b", "fp8"), ("mixtral-8x7b", "int8"),
-              ("mixtral-8x7b", "fp8"), ("xlstm-350m", "bf16")]
+              ("mixtral-8x7b", "fp8"), ("xlstm-350m", "bf16"),
+              ("phi3-medium-14b", "bf16"), ("phi3-medium-14b", "int8")]
 # phase 4: narrow models, the kernels on the card against the plain
 # versions on the CPU; those in REAL_ROUTING route as their full config
 REAL_ROUTING = {"mixtral-8x7b"}
 SMALL_CHECKS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
                 ("qwen3-30b-a3b", "bf16"), ("jamba-v0.1-52b", "bf16"),
                 ("jamba-v0.1-52b", "int8"), ("mixtral-8x7b", "int8"),
-                ("xlstm-350m", "bf16")]
+                ("xlstm-350m", "bf16"), ("phi3-medium-14b", "int8")]
 # phases 5 and 6: 8 chat requests (512 in : 256 out) that overlap
 MAIN_SPEC = dict(lam=4.0, n_requests=8, io_shape="chat", scale=1.0, seed=0)
 # phase 6: the sim tier on the card's own hardware-book entry, and the
@@ -186,6 +203,18 @@ PAPER_CHIPS = (("llama31-8b", 1), ("qwen3-30b-a3b", 1), ("mixtral-8x7b", 2))
 # compute - mem0, its quotient by the slope, ceil, max, min (m), m + k,
 # - 1, times the slope, times k - m, halved, the series, two sums to the
 # burst's time, the clock: 19 steps, 2 of them quotients
+# phase 8: the six-phase live validation (`examples/torch_serve_cost_meter.py`)
+# at the reference's rates 0.5, 1, 2, 4, 2, 0.5 req/s, 20 s of arrivals
+# each (200 requests), chat scaled by 0.375 (192 in : 96 out). At 0.25
+# (128 : 64) an H100 80GB HBM3 (700 W) filled its 8 slots in the 4 req/s
+# phase in each of three runs, but served 238-255 tokens/s at its peak
+# there, 3.7-4.0 req/s of 64-token answers, so that phase queued on some
+# hosts and hardly on others (TTFT p50 of all requests 2,870, 62 and
+# 1,050 ms). At 96 tokens the same peak serves at most 2.7 req/s, so the
+# fourth phase offers 1.5 times that; measured at 0.375, it queued 50
+# requests at its peak (their TTFT p50 15.0 s), and the backlog held all
+# 8 slots to the end of the run
+LIVE = dict(phase_s=20.0, scale=0.375)
 FLEET_F64_PER_ROUND = 31
 FLEET_CHAIN = {"other": 17, "quotients": 2}
 # a one-thread probe of the float64 latencies the chain is made of
@@ -672,23 +701,34 @@ def small_input_check(arch="llama31-8b", quant="bf16"):
     value), and a router near-tie sends a token elsewhere; on the CPU,
     nudging 1-100% of one side's MoE outputs by one bf16 step left 96-99%
     of K/V and 93-97% of conv elements within 0.02, and 85-96% of tokens
-    equal (on the card: 99.2%, 92.3% and 92.6%, with 99.3% of h). So, by
-    shares: at least 90% of K/V and 85% of conv elements within 0.02, 98%
-    of h elements within 5% of the layer's largest |h|, and 80% of greedy
-    tokens equal. A decode step that drops the carried h leaves 90-92% of
-    h; one that drops the conv state 35% of conv, 67% of h and 59% of
-    tokens.
+    equal. So, by shares: at least 90% of K/V and 85% of conv elements
+    within 0.02, 95% of h elements within 5% of the layer's largest |h|,
+    and 80% of greedy tokens equal. The h bound lies between the sound
+    readings and the planted fault that only h sees
+    (`scripts/small_check_sensitivity.py --arch jamba-v0.1-52b --quant
+    int8`, at the geometric mean of their shares outside): an H100 80GB
+    HBM3 (700 W) reads 96.92% of h on its own (99.5% of K/V, 92.4% of
+    conv, 85% of tokens), and 96.94-100% with its measured roundings
+    added as nudges (seeds 0-7); where it parts from the CPU, its router
+    parts rows at near ties, most of them pad rows of one prompt, and a
+    later Mamba layer carries them into that slot's h. A decode step that
+    drops the carried h leaves 91.9% of h on the CPU and 90.2% on the
+    card (K/V, conv and tokens do not see it); one that drops the conv
+    state 36% of conv and 66-68% of h.
 
     mixtral-8x7b in int8 (MoE, no Mamba): replayed on the CPU's own
-    inputs (`scripts/small_check_sensitivity.py --card`), an H100 rounds
+    inputs (`scripts/small_check_sensitivity.py --card`), an H100 rounded
     2.9% of the int8 q/k/v projections' bf16 results one step apart from
     the CPU, 0.15% of wo's, 0.36% of the MoE's and under 0.02% of the
-    norms', rope's and attention's; layer 0's K/V stay within one bf16
-    step and layer 1's end at most 0.054 apart. Nudging the CPU's
+    norms', rope's and attention's, while the int8 scales were formed
+    differently on the two devices; with the same scales on both, q/k/v
+    and wo are equal and the MoE's 0.40% remains. Layer 0's K/V stayed
+    within one bf16 step and layer 1's ended at most 0.054 apart. The
+    bounds below keep the noisier calibration. Nudging the CPU's
     operations at those shares ("as an H100 rounds", seeds 0-7) gives
     0.043-0.051 where layer 0 routes every token alike, as it did on the
-    card; in 4 of the 8 seeds one or two tokens route differently or lose
-    an expert to the capacity limit, and their layer-1 K/V move by up to
+    card; in 4 of the 8 seeds one or two tokens routed differently or lost
+    an expert to the capacity limit, and their layer-1 K/V moved by up to
     1.1. So tokens are held, not elements: at least 95% of the written
     K/V cells (a token's place in the pool) within 0.1 in every layer
     (the card: 100%; the nudges 98.9-100%; every result of every
@@ -702,10 +742,7 @@ def small_input_check(arch="llama31-8b", quant="bf16"):
     logits are held instead."""
     cfg, params = small_model(arch, quant)
     sides = drive_small(cfg, quant, params, {"cpu": "cpu", "cuda": "cuda"})
-    readings, ok = small_readings(cfg, quant, sides["cpu"], sides["cuda"])
-    if not ok:
-        fail(f"small-input check {arch} {quant}: {readings}")
-    return readings
+    return small_readings(cfg, quant, sides["cpu"], sides["cuda"])
 
 
 def small_model(arch, quant):
@@ -818,7 +855,7 @@ def small_readings(cfg, quant, a, b):
                 "shares within bounds": share, "greedy tokens equal": agree}
     if cfg.ssm is not None and quant == "int8":
         ok = (share["k"] >= 0.9 and share["conv"] >= 0.85
-              and share["h"] >= 0.98 and agree >= 0.8)
+              and share["h"] >= 0.95 and agree >= 0.8)
     elif cfg.moe is not None and quant == "int8":
         tokens = _tokens_within(pools, 0.1)
         readings["tokens' K/V within 0.1"] = tokens
@@ -1512,6 +1549,132 @@ def fleet_phase(h100_recs):
     return out
 
 
+def live_validation(kernels):
+    """Phase 8, the paper's six-phase live validation (§6.7): the real half
+    of `examples/torch_serve_cost_meter.py` on the full-width llama31-8b in
+    bf16 at `LIVE`'s traffic, metered at the card's entry; then the
+    example's sim half on `SIM_HW`, and the real half's own schedule and
+    engine on the sim tier of `SIM_HW` (priced alike) beside it. Gates:
+    every request finishes, the generated tokens equal the sum of their
+    `max_new_tokens`, one flash launch per attention layer per prefill
+    call and one paged launch per attention layer per decode step (no
+    other kernel), K/V pools finite, the meter's time-weighted average
+    finite and positive. Returns the readings and the launch counts."""
+    import importlib.util
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import CARD_ENGINE
+    from repro_torch.serving import Engine, EngineConfig, SimExecutor
+    from repro_torch.simulate import HW_BY_NAME, StepTimeModel
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_cost_meter",
+        os.path.join(ROOT, "examples", "torch_serve_cost_meter.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    eng, meter, reqs = example.real_half("cuda", **LIVE)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    ex, n, clock = eng.ex, layer_counts(eng.ex.cfg), eng.t
+    calls = (ex.n_prefill_calls, ex.n_decode_steps)
+    print(f"live validation: {len(reqs)} requests in {wall:.1f} s wall, "
+          f"engine clock {clock:.2f} s, {calls[0]} prefill calls, "
+          f"{calls[1]} decode steps, launches {launches}", flush=True)
+    if not all(r.finish_time is not None for r in reqs):
+        fail("live validation: not every request finished")
+    want = sum(r.max_new_tokens for r in reqs)
+    got = eng.metrics.get("repro:generation_tokens_total")
+    if got != want:
+        fail(f"live validation: generated {got} tokens, expected {want}")
+    expect = {name: 0 for name in kernels}
+    expect.update(flash_attention=n["attn"] * calls[0],
+                  paged_attention=n["attn"] * calls[1])
+    if launches != expect or not all(calls):
+        fail(f"live validation: launch counts {launches} != {expect}")
+    if not all(_minus_inf_only_where_idle(p) for p in ex.pools):
+        fail("live validation: non-finite values in the K/V pools")
+    summ = meter.summary()
+    if not (math.isfinite(summ["time_weighted_avg"])
+            and summ["time_weighted_avg"] > 0):
+        fail(f"live validation: meter average {summ['time_weighted_avg']}")
+    ttft = sorted(r.ttft for r in reqs)
+    phases = _live_phases(example.REAL_PHASES, LIVE["phase_s"], reqs,
+                          meter.samples)
+    for ph in phases:
+        print(f"live validation: {ph['lam']} req/s from t={ph['from_s']:.1f}"
+              f" s: peak in flight {ph['peak_in_flight']} (at a tick), peak "
+              f"waiting for a first token {ph['peak_waiting']}, TTFT p50 "
+              f"{ph['ttft_p50_ms']:.1f} ms", flush=True)
+    del eng, ex                       # free the card before the sim halves
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, sim_meter, sim_reqs = example.sim_half(SIM_HW)
+    cfg = get_config("llama31-8b")
+    same = Engine(EngineConfig(**CARD_ENGINE), SimExecutor(
+        cfg, StepTimeModel(cfg, HW_BY_NAME[SIM_HW])))
+    print(f"\n=== SIM tier: llama31-8b on {SIM_HW} at the real half's "
+          "traffic and engine ===", flush=True)
+    same_meter, same_reqs = example.six_phase(
+        same, price=HW_BY_NAME[SIM_HW].price_per_chip_hr,
+        phases=example.REAL_PHASES, label="sim", **LIVE)
+
+    def readings(m, rs):
+        s = {k: (v if v is None or math.isfinite(v) else None)
+             for k, v in m.summary().items()}
+        s["minute_costs"] = [c if math.isfinite(c) else None
+                             for c in m.minute_costs()]
+        s["finished"] = sum(r.finish_time is not None for r in rs)
+        return s
+
+    out = {"traffic": dict(LIVE, phases=list(example.REAL_PHASES),
+                           requests=len(reqs), output_tokens=int(got)),
+           "wall_s": wall, "engine_clock_s": clock,
+           "prefill_calls": calls[0], "decode_steps": calls[1],
+           "tokens_per_s": got / clock,
+           "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+           "phases": phases,
+           "real": readings(meter, reqs),
+           "ticks": [(s.t, s.tps, s.inflight, s.c_eff)
+                     for s in meter.samples],
+           "sim_same_traffic": readings(same_meter, same_reqs),
+           "sim_paper_schedule": readings(sim_meter, sim_reqs),
+           "launches": launches}
+    print(f"live validation: real ({SIM_HW}'s price) swing {summ['swing']} "
+          f"avg {summ['time_weighted_avg']:.4f} $/MTok; sim at the same "
+          f"traffic swing {out['sim_same_traffic']['swing']} avg "
+          f"{out['sim_same_traffic']['time_weighted_avg']:.4f}; sim at the "
+          f"paper's schedule swing {out['sim_paper_schedule']['swing']} avg "
+          f"{out['sim_paper_schedule']['time_weighted_avg']:.4f}",
+          flush=True)
+    return out
+
+
+def _live_phases(rates, phase_s, reqs, samples):
+    """Per phase of `six_phase` (its requests in order, `phase_s` seconds
+    of arrivals each): its start on the engine clock, the most
+    requests in flight at a meter tick within it, the most requests
+    waiting for a first token (queued or in prefill, the arriving one
+    included) at any of its arrivals, and its requests' TTFT p50."""
+    out, i = [], 0
+    for lam in rates:
+        n = max(1, int(lam * phase_s))
+        own, i = reqs[i:i + n], i + n
+        lo = own[0].arrival_time
+        hi = reqs[i].arrival_time if i < len(reqs) else float("inf")
+        ttft = sorted(r.ttft for r in own)
+        out.append({
+            "lam": lam, "from_s": lo, "requests": n,
+            "peak_in_flight": max([int(s.inflight) for s in samples
+                                   if lo <= s.t < hi] or [0]),
+            "peak_waiting": max(sum(r.arrival_time <= q.arrival_time
+                                    < r.first_token_time for r in reqs)
+                                for q in own),
+            "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2]})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1648,10 +1811,14 @@ def main():
 
     # 4. small inputs: kernels on the card against plain versions on the CPU
     phase("small-input checks")
+    failed = []                 # reported after the other phases have run
     for arch, quant in SMALL_CHECKS:
-        readings = small_input_check(arch, quant)
-        print(f"small-input check {arch} {quant}: {json.dumps(readings)}",
+        readings, ok = small_input_check(arch, quant)
+        print(f"small-input check {arch} {quant}: "
+              f"{'pass' if ok else 'FAIL'} {json.dumps(readings)}",
               flush=True)
+        if not ok:
+            failed.append(f"{arch} {quant}: {readings}")
 
     # 5. main paths, one engine on the card at a time
     kernels = {"paged_attention": paged_attention_kernel,
@@ -1680,11 +1847,18 @@ def main():
     fleet_check = check_fleet_loop()
     fleet = fleet_phase(h100_recs)
     print(f"fleet: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 8. the paper's six-phase live validation on the card, then the sim's
+    phase("live validation")
+    t0 = time.perf_counter()
+    live = live_validation(kernels)
+    print(f"live validation: {time.perf_counter() - t0:.1f} s", flush=True)
     phase("done")
     print(json.dumps({"main_paths": paths}))
     print(json.dumps({"sim_tier": {"against_real": sims,
                                    "matrix": matrix}}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"live_validation": live}))
 
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1692,6 +1866,7 @@ def main():
     for name, vs in variants.items():
         by_path = {f"{p['arch']} {p['quant']}": p["launches"][name]
                    for p in paths}
+        by_path["live validation llama31-8b bf16"] = live["launches"][name]
         row = {"name": name, "route": "cuda", "source": meta[name][0],
                "replaces": meta[name][1],
                "launches": sum(by_path.values()),
@@ -1721,6 +1896,8 @@ def main():
                      ms_per_launch=fleet["ms_per_launch"]))
     print(json.dumps({"kernels": rows}))
     print(smi)
+    if failed:
+        fail(f"small-input checks: {failed}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

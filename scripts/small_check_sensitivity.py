@@ -1,13 +1,15 @@
 """How far rounding noise and planted faults move `chip_smoke.py`'s
-small-input readings, on the CPU: the yardstick for their bounds.
+small-input readings: the yardstick for their bounds.
 
     PYTHONPATH=src python3 scripts/small_check_sensitivity.py \
-        [--arch mixtral-8x7b --quant int8 | --arch xlstm-350m --quant bf16]
-        [--card]
+        [--arch mixtral-8x7b --quant int8 | --arch xlstm-350m --quant bf16
+         | --arch jamba-v0.1-52b --quant int8]
+        [--card | --perturbed-device cuda]
 
-Runs `chip_smoke.small_model` twice on the CPU through
-`chip_smoke.drive_small`: a clean side, and a side perturbed in one way,
-then prints `chip_smoke.small_readings` of the pair (the same readings the
+Runs `chip_smoke.small_model` twice through `chip_smoke.drive_small`: a
+clean side on the CPU, and a side perturbed in one way (on the CPU, or
+with `--perturbed-device cuda` on the card, its own rounding added), then
+prints `chip_smoke.small_readings` of the pair (the same readings the
 card-vs-CPU check prints, and whether they pass its bounds). Perturbations:
   * nudges: a share of one projection's outputs moved by one bf16 step
     (up or down at random, seed 5), as two devices that sum a bf16
@@ -16,8 +18,9 @@ card-vs-CPU check prints, and whether they pass its bounds). Perturbations:
     results of every operation that rounds to bf16; and "as an H100
     rounds": each operation at the share `--card` measured on the card;
   * faults: decode without each context's last page (attention models),
-    or decode with the carried mLSTM or sLSTM state dropped (xLSTM).
-Imports no JAX; needs no card.
+    decode with the carried Mamba h or conv state dropped (Mamba), or
+    decode with the carried mLSTM or sLSTM state dropped (xLSTM).
+Imports no JAX; needs a card only for `--card` and `--perturbed-device`.
 """
 from __future__ import annotations
 
@@ -34,7 +37,10 @@ SHARES = (0.001, 0.01, 0.1, 1.0)
 # rounded one bf16 step apart from the CPU on the CPU's own inputs
 # (`--card`); "as an H100 rounds" nudges each at its share, with
 # generator seeds 0-7. The recurrences' own fp32 differences are not
-# nudged.
+# nudged. mixtral's shares were read while the int8 scales were formed
+# differently on the two devices; since they are formed alike, `--card`
+# reads q/k/v and wo 0 and the MoE 0.0040, so these nudges are the
+# noisier yardstick.
 CARD_SHARES = {
     "mixtral-8x7b": {"norm (ln1, final)": 5.744485294117647e-05,
                      "linear (q, k, v)": 0.028699687882965685,
@@ -44,7 +50,13 @@ CARD_SHARES = {
                      "apply_moe": 0.003600957861971659,
                      "paged_attention": 0.000152587890625},
     "xlstm-350m": {"norm (ln1, final)": 7.898667279411765e-06,
-                   "linear (xLSTM)": 0.0004412426983853663}}
+                   "linear (xLSTM)": 0.0004412426983853663},
+    # read with the int8 scales formed alike on both devices
+    "jamba-v0.1-52b": {"norm (ln1, final)": 3.9892258986928106e-07,
+                       "norm (ln2)": 2.243939568014706e-06,
+                       "apply_moe": 0.003806496084900749,
+                       "flash_attention": 8.392333984375e-05,
+                       "paged_attention": 0.0001220703125}}
 # the bf16 results "every operation" nudges: each leaf of the step
 # functions that rounds to bf16 (not the router's indices, the fp32
 # logits, or the blocks that hold nudged operations)
@@ -58,8 +70,9 @@ def one_step(t: torch.Tensor, share: float, gen: torch.Generator):
     """`t` with a `share` of its elements moved one bf16 step, at random
     up or down."""
     tf = t.float()
-    hit = torch.rand(t.shape, generator=gen) < share
-    sign = torch.where(torch.rand(t.shape, generator=gen) < 0.5, -1.0, 1.0)
+    hit = (torch.rand(t.shape, generator=gen) < share).to(t.device)
+    sign = torch.where(torch.rand(t.shape, generator=gen) < 0.5, -1.0,
+                       1.0).to(t.device)
     step = torch.exp2(torch.floor(torch.log2(tf.abs().clamp(min=1e-30)))
                       - 7)
     return torch.where(hit, tf + sign * step, tf).to(t.dtype)
@@ -80,6 +93,7 @@ def perturbations(arch, cfg):
     """name -> [(module, attribute, wrapper factory taking the original)];
     each perturbation draws its nudges from a generator of its own."""
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models import ssm as ssm_lib
     from repro_torch.models import xlstm as xlstm_lib
     from repro_torch.serving import runner
     page = 16
@@ -103,6 +117,13 @@ def perturbations(arch, cfg):
             out[f"decode drops the carried {kind} state"] = [(
                 xlstm_lib, f"{kind}_seq",
                 lambda f: lambda *a: f(*a[:-2], None, a[-1]))]
+    if cfg.ssm is not None:                 # (p, x, state, cfg, qcfg)
+        for n in ("h", "conv"):
+            out[f"decode drops the carried Mamba {n}"] = [(
+                ssm_lib, "mamba_decode_step",
+                lambda f, n=n: lambda p, x, st, *a, **k: f(
+                    p, x, dict(st, **{n: torch.zeros_like(st[n])}), *a,
+                    **k))]
     for share in SHARES:
         g = gen()
         out[f"every operation, {share:.1%} nudged"] = [
@@ -123,12 +144,16 @@ def perturbations(arch, cfg):
     return {name: p for name, p in out.items() if p}
 
 
-def run(arch: str, quant: str, names=None):
+def run(arch: str, quant: str, names=None, device="cpu"):
     """Yield (perturbation, passes the card's bounds, readings) for each
-    perturbation of `arch` (or each of `names`)."""
+    perturbation of `arch` (or each of `names`), the perturbed side run on
+    `device` (on the card: its own rounding and kernels beside the
+    planted perturbation)."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import chip_smoke
+    from repro_torch.serving import runner
+    runner.set_matmul_precision()
     cfg, params = chip_smoke.small_model(arch, quant)
     for name, patches in perturbations(arch, cfg).items():
         if names is not None and name not in names:
@@ -143,7 +168,7 @@ def run(arch: str, quant: str, names=None):
 
         try:
             sides = chip_smoke.drive_small(
-                cfg, quant, params, {"clean": "cpu", "perturbed": "cpu"},
+                cfg, quant, params, {"clean": "cpu", "perturbed": device},
                 before)
         finally:
             for mod, attr, f in saved:
@@ -342,6 +367,8 @@ def main(argv=None):
     ap.add_argument("--quant", default="int8")
     ap.add_argument("--card", action="store_true",
                     help="where the card and the CPU part (needs a card)")
+    ap.add_argument("--perturbed-device", default="cpu",
+                    help="run the perturbed side here (cuda: on the card)")
     args = ap.parse_args(argv)
     if args.card:
         for name, part in zip(("operations on the CPU's inputs",
@@ -351,7 +378,8 @@ def main(argv=None):
             print(f"{args.arch} {args.quant}, {name}: {json.dumps(part)}",
                   flush=True)
         return
-    for name, ok, readings in run(args.arch, args.quant):
+    for name, ok, readings in run(args.arch, args.quant,
+                                  device=args.perturbed_device):
         print(f"{args.arch} {args.quant}, {name}: passes the card's bounds: "
               f"{ok}; {json.dumps(readings)}", flush=True)
 

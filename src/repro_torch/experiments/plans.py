@@ -604,3 +604,29 @@ def get_plan(name: str) -> ExperimentPlan:
     if name not in PLANS:
         raise KeyError(f"unknown plan {name!r}; known: {sorted(PLANS)}")
     return PLANS[name]()
+
+
+def on_hw(plan: ExperimentPlan, hw: str, *, add: bool = False
+          ) -> ExperimentPlan:
+    """`plan` moved onto the hardware-book entry `hw`: the cells of the
+    plan's generation whose HBM is nearest `hw`'s, each with that
+    generation's chip count, priced at `hw`'s rate and seeded as a grid on
+    `hw` would seed it; the plan is named `<plan>_on_<hw>`. With `add` the
+    plan keeps its name and its own cells, and these join them (a
+    cross-hardware plan gains a generation; its store's cells stay
+    valid)."""
+    from repro_torch.simulate.hardware import HW_BY_NAME
+    target = HW_BY_NAME[hw].hbm_bytes
+    src = min(dict.fromkeys(c.hw for c in plan.cells),
+              key=lambda h: abs(HW_BY_NAME[h].hbm_bytes - target))
+    name = plan.name if add else f"{plan.name}_on_{hw.replace('-', '_')}"
+    moved = []
+    for c in plan.cells:
+        if c.hw != src:
+            continue
+        c = dataclasses.replace(c, plan=name, hw=hw, price_per_hr=
+                                chip_hour_price(hw, c.n_chips))
+        moved.append(dataclasses.replace(
+            c, seed=cell_seed(plan.seed, c.seed_key, c.lam)))
+    return dataclasses.replace(plan, name=name, cells=(
+        plan.cells if add else ()) + tuple(moved))

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 from pathlib import Path
 from typing import Dict, List, Optional, Set
 
@@ -30,12 +31,31 @@ from repro_torch.core.records import RunRecord, write_csv
 from repro_torch.experiments.plan import Cell, ExperimentPlan
 
 DEFAULT_ROOT = Path(__file__).resolve().parents[3] / "results" / "experiments"
+# The port's examples run and write under this root (listed in
+# .gitignore); the committed stores under DEFAULT_ROOT are only read.
+EXAMPLES_ROOT = (Path(__file__).resolve().parents[3] / "examples_out"
+                 / "experiments")
 
 
 def _atomic_write(path: Path, text: str):
     tmp = path.with_suffix(path.suffix + ".tmp")
     tmp.write_text(text)
     os.replace(tmp, path)
+
+
+def example_store(plan_name: str) -> "ExperimentStore":
+    """The store of `plan_name` under `EXAMPLES_ROOT`, first given a copy
+    of each cell file of the committed store of that name (under
+    `DEFAULT_ROOT`) that it lacks. The committed store is read, never
+    written."""
+    store = ExperimentStore(plan_name, EXAMPLES_ROOT)
+    committed = DEFAULT_ROOT / plan_name
+    if committed.is_dir():
+        store.dir.mkdir(parents=True, exist_ok=True)
+        for path in sorted(committed.glob("cell_*.json")):
+            if not (store.dir / path.name).exists():
+                shutil.copyfile(path, store.dir / path.name)
+    return store
 
 
 def backfill_theta(plan: ExperimentPlan,

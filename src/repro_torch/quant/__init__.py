@@ -67,11 +67,21 @@ SKIP = {"embed", "pos_embed", "enc_pos_embed", "scale", "bias", "conv",
         "conv_w", "A_log", "D", "router", "dt_bias", "gates"}
 
 
+# fl32(1/127). The served reference runs `linear` under `jax.jit`, where
+# XLA turns `xamax / 127.0` into `xamax * 0.00787401572`: the activation
+# scale is this product, not the quotient.
+INV_127 = float(torch.tensor(1.0) / 127)
+
+
 def _per_channel_scale(w: torch.Tensor, qmax: float) -> torch.Tensor:
     # Reduce over the contraction axis (-2) so stacked (..., d_in, d_out)
-    # weights quantize per output channel of each matrix.
+    # weights quantize per output channel of each matrix. The reference
+    # quantizes eagerly, so it divides exactly. A tensor divisor keeps the
+    # division exact on the card too: ATen divides a CUDA tensor by a
+    # Python number as a product by the number's float32 reciprocal.
     amax = w.float().abs().amax(dim=-2, keepdim=True)
-    return torch.clamp(amax, min=1e-8) / qmax
+    return torch.clamp(amax, min=1e-8) / torch.tensor(qmax,
+                                                      device=amax.device)
 
 
 def k_major(q: torch.Tensor) -> torch.Tensor:
@@ -103,6 +113,13 @@ def quantize_weight(w: torch.Tensor, mode: str):
     return {"q": (w.float() / scale).to(torch.float8_e4m3fn), "scale": scale}
 
 
+def act_scale(xf: torch.Tensor) -> torch.Tensor:
+    """The int8 path's per-tensor activation scale of fp32 `xf`, 0-dim:
+    amax * fl32(1/127), as the served (jitted) reference forms it, on
+    either device."""
+    return torch.clamp(xf.abs().amax(), min=1e-8) * INV_127
+
+
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The reference's `q.astype(bf16) * scale.astype(bf16)`, in bf16."""
     return q.to(torch.bfloat16) * scale.to(torch.bfloat16)
@@ -127,7 +144,7 @@ def linear(x: torch.Tensor, w, qcfg: Optional[QuantConfig] = None
 
     if qcfg.mode == "int8" and qcfg.native:
         xf = x.float()
-        xs = torch.clamp(xf.abs().amax(), min=1e-8) / 127.0
+        xs = act_scale(xf)
         xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
         K, N = q.shape
         out = int8_matmul(xq.reshape(-1, K), q, xs.reshape(1), scale)

@@ -47,7 +47,8 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssm_scan.kernel import layout, ssm_scan_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
-from repro_torch.quant import k_major
+from repro_torch.quant import (BY_NAME, act_scale, k_major, linear,
+                               quantize_weight)
 from repro_torch.serving.runner import set_matmul_precision
 
 pytestmark = pytest.mark.cuda
@@ -377,6 +378,44 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take(gen):
         int8_matmul(xq[:, :128].contiguous(), wq[:128], xs, ws)
     with pytest.raises(ValueError):       # one operand on the CPU
         int8_matmul(xq, wq.cpu(), xs, ws)
+
+
+def _amax_inputs(amax):
+    """A bf16 activation (8, 4096) and weight (4096, 1024), made on the CPU,
+    whose largest magnitude (the activation's, and the weight's in channel
+    7) is exactly `amax`."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 4096, generator=g).clamp(-1, 1).bfloat16()
+    x[3, 17] = -amax
+    w = (torch.randn(4096, 1024, generator=g) * 0.02).bfloat16()
+    w[5, 7] = amax
+    return x, w
+
+
+@pytest.mark.parametrize("amax", [1.125, 3.25])
+def test_int8_scales_and_linear_equal_on_card_and_cpu(gen, amax):
+    """At an amax where amax / 127 and amax * fl32(1/127) are one float32
+    step apart, the activation scale, the weight scales and codes, and the
+    int8 `linear` (weights quantized on the CPU) are bit for bit the same
+    on the card as on the CPU."""
+    x, w = _amax_inputs(amax)
+    apart = []
+    xs = act_scale(x.float()), act_scale(x.cuda().float()).cpu()
+    if not torch.equal(*xs):
+        apart.append(f"activation scale {[v.item().hex() for v in xs]}")
+    qw = quantize_weight(w, "int8"), quantize_weight(w.cuda(), "int8")
+    for key in ("scale", "q"):
+        on_cpu, on_card = qw[0][key], qw[1][key].cpu()
+        if not torch.equal(on_cpu, on_card):
+            n = int((on_cpu != on_card).sum())
+            apart.append(f"weight {key}: {n} of {on_cpu.numel()} apart")
+    card_w = {"q": k_major(qw[0]["q"].cuda()), "scale": qw[0]["scale"].cuda()}
+    out = linear(x.cuda(), card_w, BY_NAME["int8"]).cpu()
+    ref = linear(x, qw[0], BY_NAME["int8"])
+    if not torch.equal(out.view(torch.int16), ref.view(torch.int16)):
+        n = int((out.view(torch.int16) != ref.view(torch.int16)).sum())
+        apart.append(f"linear: {n} of {ref.numel()} outputs apart")
+    assert not apart, "; ".join(apart)
 
 
 def _ssm_inputs(gen, B, S, di, N, with_h0):

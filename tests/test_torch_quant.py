@@ -8,6 +8,8 @@ not depend on its order); the fp8 `linear` within one bf16 step of the
 result, 2**-7 relative (both dequantize to the same bf16 weights and
 accumulate in fp32, in another order, before rounding once to bf16).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +25,9 @@ from repro.quant import quantize_tree as jquantize_tree
 from repro.quant import quantize_weight as jquantize_weight
 from repro_torch.configs import reduced
 from repro_torch.kernels.int8_matmul.kernel import int8_matmul_kernel
-from repro_torch.quant import (BY_NAME, SKIP, QuantConfig, linear,
-                               quantize_tree, quantize_weight)
+from repro_torch.quant import (BY_NAME, INV_127, SKIP, QuantConfig,
+                               act_scale, linear, quantize_tree,
+                               quantize_weight, stored)
 from repro_torch.weights import params_from_jax, to_torch
 
 
@@ -122,6 +125,54 @@ def test_int8_linear_bit_exact(xdtype):
     assert int8_matmul_kernel.launches == n
     assert out.dtype == xt.dtype and out.shape == (4, 16, 384)
     _same(out, jlinear(xj, jquantize_weight(wj, "int8"), JBY_NAME["int8"]))
+
+
+def _served_inputs(amax):
+    """bf16 x (8, 4096) whose largest magnitude is exactly `amax`, and a
+    bf16 weight (4096, 1024) quantized by the reference, eagerly."""
+    rng = np.random.default_rng(4)
+    x = np.clip(rng.normal(size=(8, 4096)), -1, 1)
+    x[3, 17] = -amax
+    xj = jnp.asarray(x, jnp.bfloat16)
+    wq = jquantize_weight(jnp.asarray(rng.normal(size=(4096, 1024)) * 0.02,
+                                      jnp.bfloat16), "int8")
+    return xj, wq
+
+
+def _served_linear():
+    return jax.jit(jlinear, static_argnums=2)
+
+
+@pytest.mark.parametrize("amax", [1.125, 1.625, 3.25])
+def test_int8_linear_bit_exact_against_the_served_jit(amax):
+    """The served step functions run `repro.quant.linear` under `jax.jit`
+    (`repro.serving.runner`), where the activation scale is amax *
+    fl32(1/127). At these amax that is one float32 step from amax / 127,
+    so a quotient would move outputs; the port's `linear` gives the jitted
+    reference's outputs bit for bit, on weights the reference quantized."""
+    xj, wq = _served_inputs(amax)
+    xt = to_torch(np.asarray(xj))
+    w = {"q": stored(to_torch(np.asarray(wq["q"]))),
+         "scale": to_torch(np.asarray(wq["scale"]))}
+    _same(linear(xt, w, BY_NAME["int8"]),
+          _served_linear()(xj, wq, JBY_NAME["int8"]))
+
+
+def test_act_scale_constant_is_the_jitted_references():
+    """`INV_127` is the constant by which XLA's compiled reference
+    multiplies the activations' amax (the op it lowers `xamax / 127.0`
+    to), and `act_scale` is that product."""
+    xj, wq = _served_inputs(1.125)
+    hlo = _served_linear().lower(xj, wq, JBY_NAME["int8"]).compile().as_text()
+    consts = dict(re.findall(r"%(constant[.\d]*) = f32\[\] constant\(([^)]+)\)",
+                             hlo))
+    divs = re.findall(r"= f32\[\] multiply\(%[\w.]+, %(constant[.\d]*)\).*"
+                      r'op_name="jit\(linear\)/div"', hlo)
+    assert divs, "the jitted reference no longer forms xamax / 127.0 as a product"
+    for name in divs:
+        assert np.float32(consts[name]) == np.float32(INV_127)
+    xt = to_torch(np.asarray(xj)).float()
+    assert act_scale(xt).item() == np.float32(1.125) * np.float32(INV_127)
 
 
 @pytest.mark.parametrize("mode,native", [("fp8", False), ("fp8", True),

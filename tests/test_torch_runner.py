@@ -2,9 +2,9 @@
 
 Both run `reduced(arch, vocab=1024)` on the same converted weights and
 the same numpy-drawn prompts, on the CPU (the port through its kernels'
-plain versions): llama31-8b (dense), qwen3-30b-a3b (MoE) and the hybrid
-jamba-v0.1-52b (Mamba + attention + MoE, 8 layers), and llama31-8b and
-jamba under int8. The schedule admits three slots, decodes, admits the
+plain versions): llama31-8b and phi3-medium-14b (dense), qwen3-30b-a3b
+(MoE) and the hybrid jamba-v0.1-52b (Mamba + attention + MoE, 8 layers),
+and llama31-8b, phi3-medium-14b and jamba under int8. The schedule admits three slots, decodes, admits the
 fourth while the others hold their context, and decodes again. Both
 sides feed the same padding: MoE capacity is shared by every row of a
 group, padded rows and inactive slots included, so the reference's dropped
@@ -202,12 +202,15 @@ def test_f32_tokens_identical():
 @pytest.mark.parametrize("arch,quant", [("qwen3-30b-a3b", "bf16"),
                                         ("llama31-8b", "int8"),
                                         ("jamba-v0.1-52b", "bf16"),
-                                        ("jamba-v0.1-52b", "int8")])
+                                        ("jamba-v0.1-52b", "int8"),
+                                        ("phi3-medium-14b", "bf16"),
+                                        ("phi3-medium-14b", "int8")])
 def test_f32_tokens_identical_moe_and_int8(arch, quant):
-    """As above for the MoE model and the hybrid (7 Mamba layers, one
-    attention layer, MoE on every second), and for int8 weight matrices
-    under `BY_NAME["int8"]` with f32 activations (the int8 products are
-    exact on both sides)."""
+    """As above for the MoE model, the hybrid (7 Mamba layers, one
+    attention layer, MoE on every second) and phi3-medium-14b (dense, 4
+    query heads a KV head), and for int8 weight matrices under
+    `BY_NAME["int8"]` with f32 activations (the int8 products are exact on
+    both sides)."""
     _tokens_identical(arch, quant)
 
 

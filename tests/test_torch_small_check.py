@@ -1,5 +1,5 @@
-"""`chip_smoke.py`'s card-vs-CPU verdicts for mixtral-8x7b in int8 and
-xlstm-350m in bf16, run on the CPU with both sides on the CPU
+"""`chip_smoke.py`'s card-vs-CPU verdicts for mixtral-8x7b in int8,
+jamba-v0.1-52b in int8 and xlstm-350m in bf16, run on the CPU with both sides on the CPU
 (`scripts/small_check_sensitivity.py`): identical sides pass, rounding
 noise (one bf16 step on a share of the operations' results, as dense as
 an H100's differences from the CPU) passes, and each planted fault
@@ -32,6 +32,12 @@ def _sensitivity():
     ("mixtral-8x7b", "int8",
      ["MoE input, 100% nudged", "as an H100 rounds, seed 1"],
      ["decode drops each context's last page"]),
+    # seed 3: the fewest tokens equal of the eight seeds; the carried h
+    # dropped is seen by the h bound alone
+    ("jamba-v0.1-52b", "int8",
+     ["MoE output, 100% nudged", "as an H100 rounds, seed 3"],
+     ["decode drops the carried Mamba h",
+      "decode drops the carried Mamba conv"]),
     # seed 4: the largest sLSTM n of the eight seeds
     ("xlstm-350m", "bf16", ["as an H100 rounds, seed 4"],
      ["decode drops the carried mlstm state",
@@ -49,6 +55,7 @@ def test_verdict_passes_rounding_noise_and_fails_faults(arch, quant, passing,
 
 
 @pytest.mark.parametrize("arch,quant", [("mixtral-8x7b", "int8"),
+                                        ("jamba-v0.1-52b", "int8"),
                                         ("xlstm-350m", "bf16")])
 def test_identical_sides_pass(arch, quant):
     cfg, params = chip_smoke.small_model(arch, quant)

@@ -18,12 +18,15 @@ Phases, each of which exits non-zero on failure:
      fresh build; SYNCS (mbarrier) counted;
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b (and the int8
-     GEMM at mixtral-8x7b's and phi3-medium-14b's lm_heads, N 32000 and
-     100352; its other shapes are llama31-8b's
-     and its attention has llama31-8b's heads). The attention
-     kernels in bf16 with |kernel - plain| <= 1e-3 + 2**-7 |plain| on every
-     element (one bf16 step of the result; `repro_torch.kernels.bf16_gate`;
-     flash also with the prefill's padding mask `kv_len`); the int8 matmul
+     GEMM at mixtral-8x7b's, phi3-medium-14b's and nemotron-4-15b's
+     lm_heads, N 32000, 100352 and 256000, granite-34b's wk/wv at N 128
+     and codeqwen1.5-7b's down projection at K 13440); the attention
+     kernels at every (head_dim, group) they are compiled for
+     (`ATTN_ARCHS`: 128 with G 4, 8, 1, 6 and 48, and 64 with G 2). The
+     attention kernels in bf16 with |kernel - plain| <= 1e-3 + 2**-7
+     |plain| on every element (one bf16 step of the result;
+     `repro_torch.kernels.bf16_gate`; flash also with the prefill's
+     padding mask `kv_len`); the int8 matmul
      bit for bit; the selective scan's y and h_final in fp32 with
      |kernel - plain| <= 1e-5 + 1e-4 |plain| (`fp32_gate`) at the prefill
      (8, 512, 8192, 16) and decode (8, 1, 8192, 16) shapes. Each check
@@ -47,12 +50,15 @@ Phases, each of which exits non-zero on failure:
      on the K-major weight and on a row-major copy;
   4. small-input checks: narrow models (llama31-8b in bf16 and in int8,
      qwen3-30b-a3b in bf16, mixtral-8x7b in int8 with its own routing,
-     phi3-medium-14b in int8, 2 layers; jamba-v0.1-52b in bf16 and int8, 8
-     layers; xlstm-350m in
-     bf16, 4 layers, held by its states and fp32 logits) through the
-     kernels on the card against the same models through the plain
-     versions on the CPU; every check is printed, and a failed one fails
-     the run once the later phases have run;
+     phi3-medium-14b in int8, codeqwen1.5-7b in bf16, nemotron-4-15b and
+     granite-34b in int8, granite-moe-1b-a400m in bf16 with its own
+     routing, held by its K/V and fp32 logits, 2 layers, the last four at
+     their full config's head_dim and group; jamba-v0.1-52b in bf16 and
+     int8, 8 layers; xlstm-350m in bf16, 4 layers, held by its states and
+     fp32 logits) through the kernels on the card against the same models
+     through the plain versions on the CPU; every check is printed with
+     its last decode step's fp32 logits against the CPU's, and a failed
+     one fails the run once the later phases have run;
   5. main paths: full-width models (random weights from a seed) through
      `build_engine` -> `Engine` -> `RealExecutor` -> `CostMeter`, each
      serving 8 chat requests (512:256, lambda 4/s, seed 0) that overlap:
@@ -61,19 +67,32 @@ Phases, each of which exits non-zero on failure:
      attention, 28 Mamba, 16 MoE), mixtral-8x7b in int8 and fp8 (32
      layers, all MoE: 8 experts, top-2), xlstm-350m in bf16 (24 layers:
      12 mLSTM, 12 sLSTM; tied embeddings; no kernel of the port on its
-     path) and phi3-medium-14b in bf16 and int8 (40 layers, d_model 5120,
-     40/10 heads). Every request must finish with its token count, the K/V pools
-     and recurrent states must hold no NaN and no infinity but the -inf
+     path), phi3-medium-14b in bf16 and int8 (40 layers, d_model 5120,
+     40/10 heads), codeqwen1.5-7b in bf16 and int8 (32 layers, 32/32
+     heads), nemotron-4-15b in bf16 and int8 (32 layers, 48/8 heads,
+     squared-ReLU MLP, layernorm, vocab 256000), granite-34b in int8 and
+     bf16 (88 layers, 48/1 heads, gelu MLP) and granite-moe-1b-a400m in
+     bf16 (24 MoE layers: 32 experts, top-8; head_dim 64; tied
+     embeddings). Depth cut (`DEPTH_CUTS`) to keep the run in its time:
+     qwen3-30b-a3b, jamba-v0.1-52b and mixtral-8x7b in fp8 serve their
+     first 8 layers (jamba's one whole unit: 1 attention, 7 Mamba, 4
+     MoE), then qwen3-30b-a3b and phi3-medium-14b in bf16 their first 8
+     and xlstm-350m its first 4, each at full width with every block
+     kind and kernel of its path; every int8 path keeps full depth. Each path prints the card's
+     peak allocated memory. Every request must finish with its token
+     count, the K/V pools and recurrent states must hold no NaN and no
+     infinity but the -inf
      mLSTM stabiliser of a slot that never prefilled, and the kernels'
      launch counts, set to 0 before each path and read after it, must be
      one flash launch per attention layer per prefill call, one paged
      launch per attention layer per decode step, one scan launch per
      Mamba layer per call and, under int8, one int8 launch per `linear`
-     per call (225 for llama31-8b, 193 for qwen3-30b-a3b, 177 for
-     jamba-v0.1-52b, 129 for mixtral-8x7b, 281 for phi3-medium-14b). The meter prices at the
-     card's hardware-book entry (`launch.serve.real_tier_hw`: `h100-sxm`),
-     and each prefill call's and decode step's work and wall time is
-     logged for phase 6;
+     per call (225 for llama31-8b and codeqwen1.5-7b, 193 for
+     qwen3-30b-a3b and nemotron-4-15b, 177 for jamba-v0.1-52b, 129 for
+     mixtral-8x7b, 281 for phi3-medium-14b, 529 for granite-34b). The
+     meter prices at the card's hardware-book entry
+     (`launch.serve.real_tier_hw`: `h100-sxm`), and each prefill call's
+     and decode step's work and wall time is logged for phase 6;
   6. sim tier: each main path again on `SimExecutor` over the step-time
      model of `h100-sxm` (same quant, engine and arrivals): every request
      must finish with the real tier's token count; tokens/s, TTFT p50,
@@ -118,6 +137,7 @@ JSON lines, the
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -136,10 +156,15 @@ FP64_PEAK = 34e12         # H100 SXM fp64 FLOP/s outside the tensor cores
 # exponentials: 16 a clock per SM in the special-function units, 132 SMs
 # at the 1.98 GHz boost clock
 EXP_RATE = 132 * 16 * 1.98e9
-# served shapes: 8 slots of 512 + 256 tokens at page 16; head_dim 128 with
-# llama31-8b's 32/8 heads and qwen3-30b-a3b's 32/4
-B, HQ, D, PAGE, MAXP = 8, 32, 128, 16, 48
-HKV = {"llama31-8b": 8, "qwen3-30b-a3b": 4}
+# served shapes: 8 slots of 512 + 256 tokens at page 16; the attention
+# kernels at each (head_dim, query heads per KV head) they are compiled
+# for, with the heads of the arch that serves it (`heads`): G 4 and 8 at
+# head_dim 128 (llama31-8b, qwen3-30b-a3b), G 1, 6 and 48 (codeqwen1.5-7b,
+# nemotron-4-15b, granite-34b), and head_dim 64 at G 2
+# (granite-moe-1b-a400m)
+B, PAGE, MAXP = 8, 16, 48
+ATTN_ARCHS = ("llama31-8b", "qwen3-30b-a3b", "codeqwen1.5-7b",
+              "nemotron-4-15b", "granite-34b", "granite-moe-1b-a400m")
 # a served decode step's contexts: 8 slots of 512 prompt tokens, 8-256
 # tokens into their answers
 SERVED_LENS = [520, 555, 591, 626, 662, 697, 733, 768]
@@ -168,6 +193,9 @@ INT8_SHAPES = [
     (512, 4096, 14336, "llama31-8b prefill gate/up, one prompt"),
     (8, 4096, 32000, "mixtral-8x7b lm_head"),
     (8, 5120, 100352, "phi3-medium-14b lm_head"),
+    (8, 6144, 256000, "nemotron-4-15b lm_head"),
+    (8, 6144, 128, "granite-34b decode wk/wv"),
+    (8, 13440, 4096, "codeqwen1.5-7b decode down"),
 ]
 # the selective scan at jamba-v0.1-52b's served shapes (B, S, d_inner, N):
 # prefill of 8 slots at Lp 512 from a zero state, and a decode step
@@ -177,14 +205,36 @@ MAIN_PATHS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
               ("qwen3-30b-a3b", "fp8"), ("jamba-v0.1-52b", "int8"),
               ("jamba-v0.1-52b", "fp8"), ("mixtral-8x7b", "int8"),
               ("mixtral-8x7b", "fp8"), ("xlstm-350m", "bf16"),
-              ("phi3-medium-14b", "bf16"), ("phi3-medium-14b", "int8")]
+              ("phi3-medium-14b", "bf16"), ("phi3-medium-14b", "int8"),
+              ("codeqwen1.5-7b", "bf16"), ("codeqwen1.5-7b", "int8"),
+              ("nemotron-4-15b", "bf16"), ("nemotron-4-15b", "int8"),
+              ("granite-34b", "int8"), ("granite-34b", "bf16"),
+              ("granite-moe-1b-a400m", "bf16")]
+# main paths served at a cut depth (`launch.serve.cut_depth`), so that the
+# whole run keeps within its time on a slow host too: the three fp8
+# paths, whose int8 twins keep full depth, then qwen3-30b-a3b and
+# phi3-medium-14b in bf16, whose int8 twins run the same attention
+# kernels at full depth, and xlstm-350m, which runs no kernel of the
+# port; each keeps every block kind and kernel of its path (jamba's 8
+# layers are one whole unit: 1 attention, 7 Mamba, 4 MoE; xlstm's 4 two
+# mLSTM and two sLSTM blocks)
+DEPTH_CUTS = {("qwen3-30b-a3b", "fp8"): 8, ("jamba-v0.1-52b", "fp8"): 8,
+              ("mixtral-8x7b", "fp8"): 8, ("qwen3-30b-a3b", "bf16"): 8,
+              ("phi3-medium-14b", "bf16"): 8, ("xlstm-350m", "bf16"): 4}
 # phase 4: narrow models, the kernels on the card against the plain
-# versions on the CPU; those in REAL_ROUTING route as their full config
-REAL_ROUTING = {"mixtral-8x7b"}
+# versions on the CPU; those in REAL_ROUTING route as their full config,
+# those in SMALL_HEADS take these (query heads, KV heads, head_dim): the
+# full config's head_dim and query heads per KV head
+REAL_ROUTING = {"mixtral-8x7b", "granite-moe-1b-a400m"}
+SMALL_HEADS = {"codeqwen1.5-7b": (4, 4, 128), "nemotron-4-15b": (12, 2, 128),
+               "granite-34b": (48, 1, 128),
+               "granite-moe-1b-a400m": (8, 4, 64)}
 SMALL_CHECKS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
                 ("qwen3-30b-a3b", "bf16"), ("jamba-v0.1-52b", "bf16"),
                 ("jamba-v0.1-52b", "int8"), ("mixtral-8x7b", "int8"),
-                ("xlstm-350m", "bf16"), ("phi3-medium-14b", "int8")]
+                ("xlstm-350m", "bf16"), ("phi3-medium-14b", "int8"),
+                ("codeqwen1.5-7b", "bf16"), ("nemotron-4-15b", "int8"),
+                ("granite-34b", "int8"), ("granite-moe-1b-a400m", "bf16")]
 # phases 5 and 6: 8 chat requests (512 in : 256 out) that overlap
 MAIN_SPEC = dict(lam=4.0, n_requests=8, io_shape="chat", scale=1.0, seed=0)
 # phase 6: the sim tier on the card's own hardware-book entry, and the
@@ -335,21 +385,22 @@ def paged_bound(q, bt, lens, hkv):
     gathers once (it reads no K: its scores are all 0); q, the output, the
     block tables and the lengths; 4 FLOPs a valid position per query head
     and dimension, 2 for an idle row's positions."""
+    _, hq, d = q.shape
     n_tok = int(lens.sum())
     idle = (lens == 0).nonzero().flatten()
     idle_pages = int(torch.unique(bt[idle]).numel()) if len(idle) else 0
-    nbytes = ((2 * n_tok + idle_pages * PAGE) * hkv * D * 2
+    nbytes = ((2 * n_tok + idle_pages * PAGE) * hkv * d * 2
               + 2 * q.numel() * 2 + bt.numel() * 4 + lens.numel() * 4)
-    flops = (4 * n_tok + 2 * len(idle) * bt.shape[1] * PAGE) * HQ * D
+    flops = (4 * n_tok + 2 * len(idle) * bt.shape[1] * PAGE) * hq * d
     return bound(nbytes, flops)
 
 
-def mean_v(vp, bt_row):
+def mean_v(vp, bt_row, hq):
     """What a seq_len-0 row gets: the mean of V over every position its
-    block-table row gathers, fp32, for each query head."""
+    block-table row gathers, fp32, for each of the hq query heads."""
     _, _, hkv, d = vp.shape
     m = vp[bt_row.long()].float().reshape(-1, hkv, d).mean(0)
-    return m.repeat_interleave(HQ // hkv, dim=0)
+    return m.repeat_interleave(hq // hkv, dim=0)
 
 
 def check_paged(gen, arch):
@@ -357,17 +408,17 @@ def check_paged(gen, arch):
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_kernel
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    dev, hkv = "cuda", HKV[arch]
+    dev, (hq, hkv, d) = "cuda", heads(arch)
     P = B * MAXP + 1
     # ragged: empty, one token, exact page boundaries, the full 768
     lens = torch.tensor([0, 1, 16, 17, 256, 512, 700, 768], dtype=torch.int32,
                         device=dev)
     bt = (torch.randperm(P - 1, generator=gen, device=dev)[:B * MAXP] + 1) \
         .to(torch.int32).reshape(B, MAXP)
-    q = torch.randn(B, HQ, D, generator=gen, device=dev).bfloat16()
-    pools = [(torch.randn(P, PAGE, hkv, D, generator=gen, device=dev)
+    q = torch.randn(B, hq, d, generator=gen, device=dev).bfloat16()
+    pools = [(torch.randn(P, PAGE, hkv, d, generator=gen, device=dev)
               .bfloat16(),
-              torch.randn(P, PAGE, hkv, D, generator=gen, device=dev)
+              torch.randn(P, PAGE, hkv, d, generator=gen, device=dev)
               .bfloat16()) for _ in range(4)]
     # a served decode step: 8 slots of 520-768 tokens, and the same with
     # slots 0-3 idle as the engine leaves them (seq_len 0, rows of 0s)
@@ -384,7 +435,7 @@ def check_paged(gen, arch):
             torch.cuda.synchronize()
             pairs.append((out, paged_attention_ref(q, kp, vp, t, n)))
             for b in (n == 0).nonzero().flatten().tolist():
-                g = bf16_gate(out[b], mean_v(vp, t[b]))
+                g = bf16_gate(out[b], mean_v(vp, t[b], hq))
                 if not g <= 1:
                     fail(f"paged attention ({arch}): seq_len 0 in row {b} is "
                          f"not the mean of V over its row: gate {g}")
@@ -416,8 +467,9 @@ def check_paged(gen, arch):
         "plain_ms": device_ms(paged_attention_ref, args),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "share_of_bound": b_ms / ms, "served_mixes": mixes,
-        "shape": f"{arch}: B={B} Hq={HQ} Hkv={hkv} D={D} page={PAGE} "
+        "shape": f"{arch}: B={B} Hq={hq} Hkv={hkv} D={d} page={PAGE} "
                  f"max_pages={MAXP} seq_lens={lens.tolist()}",
+        "instantiation": {"head_dim": d, "group": hq // hkv},
     }
 
 
@@ -427,12 +479,12 @@ def check_flash(gen, arch):
         flash_attention_kernel
     from repro_torch.kernels import bf16_gate
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    dev, hkv = "cuda", HKV[arch]
+    dev, (hq, hkv, d) = "cuda", heads(arch)
     pairs = []
     sets = {}
     for L in (512, 576):   # 576: a multiple of 64, not of 128
-        sets[L] = [tuple(torch.randn(B, L, h, D, generator=gen, device=dev)
-                         .bfloat16() for h in (HQ, hkv, hkv))
+        sets[L] = [tuple(torch.randn(B, L, h, d, generator=gen, device=dev)
+                         .bfloat16() for h in (hq, hkv, hkv))
                    for _ in range(2)]
         for q, k, v in sets[L]:
             out = flash_attention_kernel(q, k, v, causal=True)
@@ -464,8 +516,8 @@ def check_flash(gen, arch):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
 
-    nbytes = 2 * (2 * B * L * HQ * D + 2 * B * L * hkv * D)
-    flops = 4 * B * HQ * L * L * D / 2
+    nbytes = 2 * (2 * B * L * hq * d + 2 * B * L * hkv * d)
+    flops = 4 * B * hq * L * L * d / 2
     b_ms, b_by = bound(nbytes, flops)
     # what a served prefill call passes: the slots that prefill have their
     # prompt (here all 512 tokens), the others kv_len 0 (the mean of V);
@@ -474,9 +526,9 @@ def check_flash(gen, arch):
     n_pre = B // 2
     mix = torch.tensor([L] * n_pre + [0] * (B - n_pre), dtype=torch.int32,
                        device=dev)
-    mix_bytes = 2 * (n_pre * L * HQ * D + B * L * HQ * D + n_pre * L * hkv * D
-                     + B * L * hkv * D) + 4 * B
-    mix_flops = 4 * n_pre * HQ * L * L * D / 2
+    mix_bytes = 2 * (n_pre * L * hq * d + B * L * hq * d + n_pre * L * hkv * d
+                     + B * L * hkv * d) + 4 * B
+    mix_flops = 4 * n_pre * hq * L * L * d / 2
     mix_b_ms, mix_b_by = bound(mix_bytes, mix_flops)
     ms = device_ms(lambda q, k, v: flash_attention_kernel(
         q, k, v, causal=True), args)
@@ -503,9 +555,10 @@ def check_flash(gen, arch):
             "bound_ms": mix_b_ms, "bound_by": mix_b_by,
             "share_of_bound": mix_b_ms / mix_ms,
             "tflops": mix_flops / mix_ms * 1e-9},
-        "shape": f"{arch}: B={B} Sq=Sk={L} Hq={HQ} Hkv={hkv} D={D} causal "
+        "shape": f"{arch}: B={B} Sq=Sk={L} Hq={hq} Hkv={hkv} D={d} causal "
                  f"(checked also at Sq=Sk=576 and with kv_len "
                  f"{kv_len.tolist()})",
+        "instantiation": {"head_dim": d, "group": hq // hkv},
     }
 
 
@@ -685,7 +738,9 @@ def small_input_check(arch="llama31-8b", quant="bf16"):
     mLSTM, sLSTM) through the kernels on the card and through the plain
     versions on the CPU, on the same weights (quantized on the CPU, then
     moved) and tokens. The MoE layers of an arch in `REAL_ROUTING` route as
-    the full config does (mixtral-8x7b: 8 experts, top-2, groups of 256).
+    the full config does (mixtral-8x7b: 8 experts, top-2, groups of 256;
+    granite-moe-1b-a400m: 32 experts, top-8); an arch in `SMALL_HEADS` has
+    its full config's head_dim and query heads per KV head.
 
     In bf16, and in int8 without Mamba or MoE layers: K/V pools within 0.02 (five
     bf16 steps at |K| < 1) and at least 90% of greedy tokens equal (a flip
@@ -736,6 +791,29 @@ def small_input_check(arch="llama31-8b", quant="bf16"):
     89-96%). A decode that drops each context's last page leaves 91.4% of
     the cells and 63% of the tokens.
 
+    granite-34b in int8 (48 query heads on one KV head): on the card every
+    int8 `linear` equals the CPU's bit for bit, but the norms, rope and
+    attention round 0.002-0.007% of their results a bf16 step apart
+    (`scripts/small_check_sensitivity.py --card`), and a `linear`'s
+    per-tensor activation quantization turns such a step into a flipped
+    int8 code: the card's K/V ended 0.0234 apart on 0.01% of layer 1's
+    elements, past the 0.02 above, and the CPU's operations nudged at the
+    card's shares ("as an H100 rounds", seeds 0-7, on the CPU and on the
+    card) 0.030-0.044. So it is held as mixtral-8x7b int8 is (`BY_CELLS`):
+    those nudges keep 100% of the cells within 0.1 and 93-100% of the
+    tokens (every result of every operation nudged: 98.9% and 93%); a
+    decode that drops each context's last page leaves 91.4% and 59%.
+
+    granite-moe-1b-a400m in bf16 (32 experts, top-8, head_dim 64, tied
+    embeddings): tokens say nothing, as for xlstm-350m below, so the share
+    of written K/V cells within 0.02 in every layer and the last decode
+    step's fp32 logits are held (`TIED_BOUNDS`), each bound at the
+    geometric mean of the farthest sound reading and the nearest fault
+    reading, as jamba int8's h bound: an H100 80GB HBM3 (700 W) read 100%
+    and 0.0026 of the logits' largest; the "as an H100 rounds" nudges
+    (seeds 0-7, on the CPU and on the card) 99.46-100% and 0.0022-0.0035;
+    a decode that drops each context's last page 91.40% and 0.242.
+
     xlstm-350m in bf16 (`_xlstm_readings`): tokens say nothing there (with
     tied random embeddings greedy decoding repeats each slot's last prompt
     token), so every mLSTM and sLSTM state and the last decode step's fp32
@@ -748,7 +826,6 @@ def small_input_check(arch="llama31-8b", quant="bf16"):
 def small_model(arch, quant):
     """The narrow model of `small_input_check`: (cfg, parameters on the
     CPU, drawn from seed 1 and quantized to `quant`)."""
-    import dataclasses
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import init_params
     full = get_config(arch)
@@ -758,6 +835,10 @@ def small_model(arch, quant):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=full.moe.num_experts, top_k=full.moe.top_k,
             group_size=full.moe.group_size))
+    if arch in SMALL_HEADS:
+        hq, hkv, d = SMALL_HEADS[arch]
+        cfg = dataclasses.replace(cfg, num_heads=hq, num_kv_heads=hkv,
+                                  head_dim=d)
     return cfg, init_params(cfg, device="cpu", quant=quant,
                             generator=torch.Generator().manual_seed(1))
 
@@ -831,6 +912,9 @@ def small_readings(cfg, quant, a, b):
     diff = max(float((x[n][1:].float() -
                       y[n][1:].float().cpu()).abs().max())
                for x, y in pools if "k" in x for n in ("k", "v"))
+    act = torch.from_numpy(a["active"])
+    lc, lg = a["logits"][act], b["logits"][act]
+    logits = float((lc - lg).abs().max() / lc.abs().max())
     # the share of elements within a bound: 0.02 for the bf16 activations
     # (K/V past the trash page, conv), 5% of the layer's largest |h| for h;
     # and the Mamba states' largest difference over the layer's largest
@@ -852,18 +936,37 @@ def small_readings(cfg, quant, a, b):
     share = {n: ok / tot if tot else 1.0 for n, (ok, tot) in counts.items()}
     readings = {"K/V max diff": diff,
                 "Mamba states' max diff over their largest": rel,
-                "shares within bounds": share, "greedy tokens equal": agree}
+                "shares within bounds": share, "greedy tokens equal": agree,
+                "last logits' max diff over their largest": logits}
     if cfg.ssm is not None and quant == "int8":
         ok = (share["k"] >= 0.9 and share["conv"] >= 0.85
               and share["h"] >= 0.95 and agree >= 0.8)
-    elif cfg.moe is not None and quant == "int8":
+    elif quant == "int8" and cfg.name.removesuffix("-reduced") in BY_CELLS:
         tokens = _tokens_within(pools, 0.1)
         readings["tokens' K/V within 0.1"] = tokens
         ok = tokens >= 0.95 and agree >= 0.8
+    elif cfg.tie_embeddings:
+        # tied random embeddings: greedy decoding repeats each slot's last
+        # prompt token, so the K/V cells and the fp32 logits are held
+        tokens = _tokens_within(pools, TIED_BOUNDS["K/V"])
+        readings[f"tokens' K/V within {TIED_BOUNDS['K/V']}"] = tokens
+        ok = (tokens >= TIED_BOUNDS["tokens' K/V"]
+              and logits <= TIED_BOUNDS["logits"])
     else:
         ok = (diff <= 0.02 and rel["conv"] <= 0.05 and rel["h"] <= 0.05
               and agree >= 0.9)
     return readings, ok
+
+
+# the int8 checks held by tokens, not elements (`small_input_check`): at
+# least 95% of the written K/V cells within 0.1 of the reference's in
+# every layer, and 80% of greedy tokens equal
+BY_CELLS = {"mixtral-8x7b", "granite-34b"}
+# bounds of granite-moe-1b-a400m's check in bf16 (tied embeddings, 32
+# experts, top-8): the share of written K/V cells within "K/V" of the
+# reference's in every layer, and the last decode step's fp32 logits, as
+# their largest difference over their largest magnitude
+TIED_BOUNDS = {"K/V": 0.02, "tokens' K/V": 0.978, "logits": 0.029}
 
 
 def _tokens_within(pools, tol) -> float:
@@ -1003,15 +1106,19 @@ def record_steps(ex):
 
 
 def main_path(arch, quant, kernels):
-    """Serve 8 chat requests on the full-width `arch` in `quant`; returns
-    the path's readings, its kernels' launch counts and the log of its
-    prefill calls and decode steps (`record_steps`)."""
+    """Serve 8 chat requests on the full-width `arch` in `quant` (at the
+    depth `DEPTH_CUTS` gives it, else its full depth); returns the path's
+    readings, its kernels' launch counts and the log of its prefill calls
+    and decode steps (`record_steps`). The peak of the card's allocated
+    memory is read from the engine's build to the end of its requests."""
     import numpy as np
     from repro_torch.core import chip_hour_price
     from repro_torch.launch.serve import build_engine, real_tier_hw, serve
     from repro_torch.serving import ArrivalSpec
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = build_engine(arch, device="cuda", seed=0, quant=quant)
+    eng = build_engine(arch, device="cuda", seed=0, quant=quant,
+                       layers=DEPTH_CUTS.get((arch, quant)))
     torch.cuda.synchronize()          # the weights are drawn on the card
     ex = eng.ex
     n_params = _n_weights(ex.params)
@@ -1032,10 +1139,12 @@ def main_path(arch, quant, kernels):
                         log=lambda s: print(s, flush=True))
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
     n, calls = layer_counts(ex.cfg), (ex.n_prefill_calls, ex.n_decode_steps)
     print(f"main path {arch} {quant}: {len(reqs)} requests in {wall:.1f} s "
           f"wall, engine clock {eng.t:.2f} s, {calls[0]} prefill calls, "
-          f"{calls[1]} decode steps, launches {launches}", flush=True)
+          f"{calls[1]} decode steps, launches {launches}, peak memory "
+          f"{peak / 2**30:.2f} GiB allocated", flush=True)
     if not all(r.finish_time is not None for r in reqs):
         fail(f"{arch} {quant}: not every request finished")
     want = sum(r.max_new_tokens for r in reqs)
@@ -1054,7 +1163,9 @@ def main_path(arch, quant, kernels):
         fail(f"{arch} {quant}: non-finite values in the KV pools or the "
              "recurrent states (beyond an idle slot's mLSTM m = -inf)")
     out = {
-        "arch": arch, "quant": quant, "requests": len(reqs),
+        "arch": arch, "quant": quant, "layers": ex.cfg.num_layers,
+        "weights_gib": _n_bytes(ex.params) / 2**30,
+        "peak_memory_gib": peak / 2**30, "requests": len(reqs),
         "finished": sum(r.finish_time is not None for r in reqs),
         "output_tokens": int(got), "prefill_calls": calls[0],
         "decode_steps": calls[1], "engine_clock_s": eng.t,
@@ -1089,7 +1200,7 @@ def sim_against_real(real, steps):
                                      SimExecutor)
     from repro_torch.simulate import HW_BY_NAME, StepTimeModel
     arch, quant = real["arch"], real["quant"]
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), num_layers=real["layers"])
     stm = StepTimeModel(cfg, HW_BY_NAME[SIM_HW], quant=quant)
     eng = Engine(EngineConfig(**CARD_ENGINE), SimExecutor(cfg, stm))
     reqs, meter = serve(eng, ArrivalSpec(**MAIN_SPEC),
@@ -1413,7 +1524,6 @@ def hold_records(oracle, got, what):
     """The jit backend's records against the numpy fleet's: every
     non-float field equal, every float within the jit tolerance. Returns
     (float fields, those not bitwise equal)."""
-    import dataclasses
     import math
     from repro_torch.serving.precision import jit_tolerance
     rtol, atol = jit_tolerance()
@@ -1765,8 +1875,8 @@ def main():
                      "src/repro/kernels/ssm_scan/kernel.py:55"),
     }
     variants = {
-        "paged_attention": [check_paged(gen, a) for a in HKV],
-        "flash_attention": [check_flash(gen, a) for a in HKV],
+        "paged_attention": [check_paged(gen, a) for a in ATTN_ARCHS],
+        "flash_attention": [check_flash(gen, a) for a in ATTN_ARCHS],
         "int8_matmul": check_int8(gen),
         "ssm_scan": check_ssm(gen),
     }
@@ -1867,6 +1977,13 @@ def main():
         by_path = {f"{p['arch']} {p['quant']}": p["launches"][name]
                    for p in paths}
         by_path["live validation llama31-8b bf16"] = live["launches"][name]
+        for v in vs:        # an attention instantiation's own launches
+            if "instantiation" in v:
+                v["launches"] = sum(
+                    p["launches"][name] for p in paths
+                    if instantiation(p["arch"]) == v["instantiation"]) + (
+                    live["launches"][name] if instantiation("llama31-8b")
+                    == v["instantiation"] else 0)
         row = {"name": name, "route": "cuda", "source": meta[name][0],
                "replaces": meta[name][1],
                "launches": sum(by_path.values()),
@@ -1882,7 +1999,8 @@ def main():
             row["served_mixes"] = vs[0]["served_mixes"]
         row["launches_by_path"] = by_path
         row["variants"] = [{k: v[k] for k in ("shape",) + keys
-                            + ("bound_term", "bound_terms_ms", "tflops",
+                            + ("instantiation", "launches",
+                               "bound_term", "bound_terms_ms", "tflops",
                                "share_of_bound", "x_library", "library_gate",
                                "served_mix", "served_mixes", "tops",
                                "x_bound",
@@ -1900,6 +2018,20 @@ def main():
         fail(f"small-input checks: {failed}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
+
+
+def heads(arch):
+    """(query heads, KV heads, head_dim) of the full `arch`."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
+def instantiation(arch) -> dict:
+    """The attention kernels' instantiation that `arch` runs: its head_dim
+    and query heads per KV head."""
+    hq, hkv, d = heads(arch)
+    return {"head_dim": d, "group": hq // hkv}
 
 
 def _n_weights(tree) -> int:

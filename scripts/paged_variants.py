@@ -161,11 +161,11 @@ def main():
             print(f"clusters of the served launch that fit at once, "
                   f"{name}: {clusters[name]}")
     fns = {name: caller(lib) for name, lib in libs.items()}
-    B, HQ, D, PAGE, MAXP = (chip_smoke.B, chip_smoke.HQ, chip_smoke.D,
-                            chip_smoke.PAGE, chip_smoke.MAXP)
+    B, PAGE, MAXP = chip_smoke.B, chip_smoke.PAGE, chip_smoke.MAXP
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for arch, hkv in chip_smoke.HKV.items():
+    for arch in ("llama31-8b", "qwen3-30b-a3b"):
+        HQ, hkv, D = chip_smoke.heads(arch)
         P = B * MAXP + 1
         bt = (torch.randperm(P - 1, generator=gen, device="cuda") + 1) \
             .to(torch.int32).reshape(B, MAXP)

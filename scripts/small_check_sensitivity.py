@@ -3,7 +3,9 @@ small-input readings: the yardstick for their bounds.
 
     PYTHONPATH=src python3 scripts/small_check_sensitivity.py \
         [--arch mixtral-8x7b --quant int8 | --arch xlstm-350m --quant bf16
-         | --arch jamba-v0.1-52b --quant int8]
+         | --arch jamba-v0.1-52b --quant int8
+         | --arch granite-moe-1b-a400m --quant bf16
+         | --arch granite-34b --quant int8]
         [--card | --perturbed-device cuda]
 
 Runs `chip_smoke.small_model` twice through `chip_smoke.drive_small`: a
@@ -56,7 +58,19 @@ CARD_SHARES = {
                        "norm (ln2)": 2.243939568014706e-06,
                        "apply_moe": 0.003806496084900749,
                        "flash_attention": 8.392333984375e-05,
-                       "paged_attention": 0.0001220703125}}
+                       "paged_attention": 0.0001220703125},
+    # the operations that rounded apart at all (the norms did not)
+    "granite-moe-1b-a400m": {"linear (q, k, v)": 0.00016605152803308824,
+                             "rope": 2.5132123161764705e-05,
+                             "flash_attention": 9.34600830078125e-05,
+                             "linear (wo)": 0.00020464728860294118,
+                             "apply_moe": 0.014949539917497496,
+                             "paged_attention": 3.0517578125e-05},
+    # every int8 `linear` equal; only these rounded apart
+    "granite-34b": {"norm (ln1, final)": 2.3935355392156862e-05,
+                    "rope": 1.963676095438175e-05,
+                    "flash_attention": 7.43865966796875e-05,
+                    "paged_attention": 6.357828776041667e-05}}
 # the bf16 results "every operation" nudges: each leaf of the step
 # functions that rounds to bf16 (not the router's indices, the fp32
 # logits, or the blocks that hold nudged operations)

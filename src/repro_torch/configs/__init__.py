@@ -3,10 +3,12 @@
 Counterpart of `repro.configs`. The port holds the configurations it
 serves: the paper's three models, the dense llama31-8b, the ultra-sparse
 MoE qwen3-30b-a3b and the sparse MoE mixtral-8x7b; the hybrid Mamba +
-attention + MoE jamba-v0.1-52b; and xlstm-350m, of mLSTM and sLSTM
-blocks with tied embeddings; and phi3-medium-14b, which the reference's
-`paper_a100` plan names (the sim tier prices it; the port does not serve
-it on the card yet). The others arrive with the slices that serve them.
+attention + MoE jamba-v0.1-52b; xlstm-350m, of mLSTM and sLSTM blocks
+with tied embeddings; the dense phi3-medium-14b, codeqwen1.5-7b (full
+multi-head attention), nemotron-4-15b (squared-ReLU MLP, layernorm) and
+granite-34b (multi-query attention, 88 layers); and the MoE
+granite-moe-1b-a400m (head_dim 64, 32 experts, tied embeddings). The
+others arrive with the slices that serve them.
 
 `reduced(name)` returns a tiny same-family config for CPU tests.
 """
@@ -29,11 +31,13 @@ from repro_torch.configs.base import (  # noqa: F401
     XLSTMConfig,
 )
 from repro_torch.configs import (  # noqa: E402
-    jamba_v0_1_52b, llama31_8b, mixtral_8x7b, phi3_medium_14b, qwen3_30b_a3b,
+    codeqwen1_5_7b, granite_34b, granite_moe_1b_a400m, jamba_v0_1_52b,
+    llama31_8b, mixtral_8x7b, nemotron_4_15b, phi3_medium_14b, qwen3_30b_a3b,
     xlstm_350m)
 
 _MODULES = (llama31_8b, qwen3_30b_a3b, jamba_v0_1_52b, mixtral_8x7b,
-            xlstm_350m, phi3_medium_14b)
+            xlstm_350m, phi3_medium_14b, codeqwen1_5_7b, nemotron_4_15b,
+            granite_34b, granite_moe_1b_a400m)
 
 _REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -10,7 +10,7 @@
 // masks keys at or past kv_len[b], as the reference model's prefill
 // attention does for padded prompts; a sequence with kv_len 0 gets there
 // the softmax of all-equal masked scores, the mean of V over all Sk keys,
-// and here too, from one pass over V with no scores. D is 128 only.
+// and here too, from one pass over V with no scores. D is 128 or 64.
 //
 // What bounds it on this card: it does 4*Sq*Sk*D/2 FLOPs per (sequence,
 // head) when causal against 2*(2*Sq + 2*Sk/G)*D bytes (q and out per
@@ -18,7 +18,8 @@
 // sequence. At the served prefill shape (Sq = Sk = 512, D = 128, G = 4)
 // that is about 100 FLOP/byte, under the ~295 where the bf16 tensor cores
 // would bound: device-memory bytes set the least time there, and
-// operations do from about 1.5k tokens up.
+// operations do from about 1.5k tokens up. At D 64 (granite-moe-1b-a400m)
+// the products halve and so do the bytes: the same balance.
 //
 // What the design does about it: the products run on the tensor cores
 // (bf16 wgmma, fp32 accumulators) and the tiles arrive by TMA, so no
@@ -29,13 +30,13 @@
 // "full" mbarrier (the copies' bytes landed) and an "empty" one (both
 // consumers are done with it); it gives up registers (setmaxnreg) to the
 // consumers. Warpgroups 1 and 2 each own 64 query rows. Per key tile:
-// S = Q K^T as 8 wgmma m64n64k16 with both operands in shared memory
+// S = Q K^T as D / 16 wgmma m64n64k16 with both operands in shared memory
 // (K-major: D is contiguous in the (B, S, H, D) layout); masks only on
 // tiles that cross the causal diagonal or the kv_len edge (TMA fills rows
 // past Sk with zeros, which the kv_len mask covers); the online softmax in
 // registers (each row's max over the four lanes of a quad, exp2 with the
 // scale folded in, O rescaled only where the max moved, row sums kept per
-// thread and summed once at the end); then O += P V as wgmma m64n128k16
+// thread and summed once at the end); then O += P V as wgmma m64nDk16
 // with P taken from the registers as the A operand (the accumulator layout
 // of S is the A-fragment layout, so P never touches shared memory) and V
 // from shared memory N-major. P goes in as three bf16 terms, each the
@@ -66,20 +67,30 @@
 
 namespace {
 
-constexpr int D = 128;                 // head_dim
 constexpr int BQ = 128;                // query rows per block, 64 a consumer
 constexpr int BK = 64;                 // keys per K/V tile
 constexpr int STAGES = 2;              // K/V tiles in flight
 constexpr int THREADS = 384;           // producer + two consumer warpgroups
 constexpr int CONSUMERS = 256;
-// Tiles are stored as two 64-column halves (128-byte rows, the swizzle's
-// width), each half rows x 128 bytes
-constexpr int Q_HALF = BQ * 128, Q_TILE = 2 * Q_HALF;      // 32 KB
-constexpr int KV_HALF = BK * 128, KV_TILE = 2 * KV_HALF;   // 16 KB
-constexpr int OFF_K = Q_TILE;
-constexpr int OFF_V = OFF_K + STAGES * KV_TILE;
-constexpr int OFF_BAR = OFF_V + STAGES * KV_TILE;
-constexpr size_t SMEM = OFF_BAR + 64 + 1024;   // + barriers, + alignment
+// Tiles are stored as D / 64 column halves of 64 (128-byte rows, the
+// swizzle's width), each half rows x 128 bytes: two at head_dim 128, one
+// at 64
+constexpr int Q_HALF = BQ * 128;       // 16 KB
+constexpr int KV_HALF = BK * 128;      // 8 KB
+
+// The shared-memory layout at head_dim D: the Q tile, the K and V rings,
+// the barriers.
+template <int D>
+struct Layout {
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static constexpr int HALVES = D / 64;
+  static constexpr int Q_TILE = HALVES * Q_HALF;
+  static constexpr int KV_TILE = HALVES * KV_HALF;
+  static constexpr int OFF_K = Q_TILE;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_TILE;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_TILE;
+  static constexpr size_t SMEM = OFF_BAR + 64 + 1024;  // + barriers, align
+};
 
 struct Barriers {
   uint64_t q, full[STAGES], empty[STAGES];
@@ -136,9 +147,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // A sequence with no valid key: every row of the block is the mean of V
-// over all Sk keys of KV head hk, summed in fp32 with 16-byte loads (24
-// rows side by side, 16 chunks of 8 values each) and written with 16-byte
-// stores.
+// over all Sk keys of KV head hk, summed in fp32 with 16-byte loads (at D
+// 128, 24 rows side by side, 16 chunks of 8 values each) and written with
+// 16-byte stores.
+template <int D>
 __device__ void mean_of_v(uint8_t* smem, const __nv_bfloat16* v,
                           __nv_bfloat16* out, int b, int h, int hk, int q0,
                           const Shape& sh) {
@@ -179,6 +191,7 @@ __device__ void mean_of_v(uint8_t* smem, const __nv_bfloat16* v,
 }
 
 // The two consumer warpgroups: 64 query rows each.
+template <int D>
 __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
                                         const CUtensorMap* map_o,
                                         const Place& p, int causal) {
@@ -195,24 +208,26 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
   // exp(x / sqrt(D)) = exp2(x * sl)
   const float sl = 1.4426950408889634f / sqrtf((float)D);
   uint8_t* qs = smem + cw * (Q_HALF / 2);     // this warpgroup's 64 rows
+  using L = Layout<D>;
 
-  float o[64];
+  float o[D / 2];                             // 64 x D, fp32
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   hopper::mbar_wait(&bars->q, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % STAGES;
-    const uint8_t* ks = smem + OFF_K + s * KV_TILE;
-    const uint8_t* vs = smem + OFF_V + s * KV_TILE;
+    const uint8_t* ks = smem + L::OFF_K + s * L::KV_TILE;
+    const uint8_t* vs = smem + L::OFF_V + s * L::KV_TILE;
     hopper::mbar_wait(&bars->full[s], (kt / STAGES) & 1);
     if (kt >= n_run) {
       hopper::mbar_arrive(&bars->empty[s]);
       continue;
     }
 
-    // S = Q K^T (64 x 64): 8 k-steps of 16 over D, 4 in each 64-wide half
+    // S = Q K^T (64 x 64): D / 16 k-steps of 16 over D, 4 in each 64-wide
+    // half
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -251,7 +266,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
       const float a = ex2((m0 - mx0) * sl);
       l0 *= a;
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < D / 2; i += 4) {
         o[i] *= a;
         o[i + 1] *= a;
       }
@@ -261,7 +276,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
       const float a = ex2((m1 - mx1) * sl);
       l1 *= a;
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < D / 2; i += 4) {
         o[i + 2] *= a;
         o[i + 3] *= a;
       }
@@ -290,7 +305,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
 
     // O += P V: 4 k-steps of 16 keys, each running the three terms against
     // one descriptor of V, which is N-major (D contiguous): its 64-wide
-    // halves KV_HALF bytes apart, 8-key groups 1024 bytes apart
+    // halves KV_HALF bytes apart, 8-key groups 1024 bytes apart; N = D
     hopper::fence_operands(o);
     const uint64_t dv = hopper::desc_sw128(vs, KV_HALF, 1024);
     hopper::wgmma_fence();
@@ -298,10 +313,16 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t d = hopper::desc_advance(dv, kk * 2048);
 #pragma unroll
-      for (int n = 0; n < 3; ++n)
-        hopper::wgmma_m64n128k16_rs<1>(o, pt[n][4 * kk], pt[n][4 * kk + 1],
-                                       pt[n][4 * kk + 2], pt[n][4 * kk + 3],
-                                       d, 1);
+      for (int n = 0; n < 3; ++n) {
+        if constexpr (D == 128)
+          hopper::wgmma_m64n128k16_rs<1>(o, pt[n][4 * kk], pt[n][4 * kk + 1],
+                                         pt[n][4 * kk + 2], pt[n][4 * kk + 3],
+                                         d, 1);
+        else
+          hopper::wgmma_m64n64k16_rs<1>(o, pt[n][4 * kk], pt[n][4 * kk + 1],
+                                        pt[n][4 * kk + 2], pt[n][4 * kk + 3],
+                                        d, 1);
+      }
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -317,7 +338,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
   const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
   const int r = 16 * (t / 32) + lane / 4;     // row0 - row_lo; r % 8 = lane/4
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < D / 2; i += 2) {
     const int j = i / 4, rr = r + 8 * ((i / 2) % 2);
     const float inv = (i & 2) ? inv1 : inv0;
     uint8_t* dst = qs + (j / 8) * Q_HALF + rr * 128 +
@@ -327,12 +348,15 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers* bars,
   hopper::fence_async_shared();
   hopper::named_sync(1 + cw, 128);
   if (t == 0) {
-    hopper::tma_store_3d(map_o, qs, h * D, row_lo, b);
-    hopper::tma_store_3d(map_o, qs + Q_HALF, h * D + 64, row_lo, b);
+#pragma unroll
+    for (int half = 0; half < L::HALVES; ++half)
+      hopper::tma_store_3d(map_o, qs + half * Q_HALF, h * D + 64 * half,
+                           row_lo, b);
     hopper::tma_store_wait();
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -344,12 +368,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem =
       smem_raw + ((1024 - hopper::smem_u32(smem_raw) % 1024) % 1024);
-  Barriers* bars = reinterpret_cast<Barriers*>(smem + OFF_BAR);
+  using L = Layout<D>;
+  Barriers* bars = reinterpret_cast<Barriers*>(smem + L::OFF_BAR);
 
   {
     const Place p = locate(sh, kv_len);
     if (p.kvl <= 0) {
-      mean_of_v(smem, v, out, p.b, p.h, p.hk, p.q0, sh);
+      mean_of_v<D>(smem, v, out, p.b, p.h, p.hk, p.q0, sh);
       return;
     }
   }
@@ -368,38 +393,43 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == 0) {
       const Place p = locate(sh, kv_len);
       const int b = p.b, kc = p.hk * D;
-      hopper::mbar_arrive_expect_tx(&bars->q, Q_TILE);
-      hopper::tma_load_3d(smem, &map_q, &bars->q, p.h * D, p.q0, b);
-      hopper::tma_load_3d(smem + Q_HALF, &map_q, &bars->q, p.h * D + 64,
-                          p.q0, b);
+      hopper::mbar_arrive_expect_tx(&bars->q, L::Q_TILE);
+#pragma unroll
+      for (int half = 0; half < L::HALVES; ++half)
+        hopper::tma_load_3d(smem + half * Q_HALF, &map_q, &bars->q,
+                            p.h * D + 64 * half, p.q0, b);
       for (int kt = 0; kt < p.n_kt; ++kt) {
         const int s = kt % STAGES, k0 = kt * BK;
         if (kt >= STAGES)
           hopper::mbar_wait(&bars->empty[s], (kt / STAGES - 1) & 1);
-        hopper::mbar_arrive_expect_tx(&bars->full[s], 2 * KV_TILE);
-        uint8_t* ks = smem + OFF_K + s * KV_TILE;
-        uint8_t* vs = smem + OFF_V + s * KV_TILE;
-        hopper::tma_load_3d(ks, &map_k, &bars->full[s], kc, k0, b);
-        hopper::tma_load_3d(ks + KV_HALF, &map_k, &bars->full[s], kc + 64, k0,
-                            b);
-        hopper::tma_load_3d(vs, &map_v, &bars->full[s], kc, k0, b);
-        hopper::tma_load_3d(vs + KV_HALF, &map_v, &bars->full[s], kc + 64, k0,
-                            b);
+        hopper::mbar_arrive_expect_tx(&bars->full[s], 2 * L::KV_TILE);
+        uint8_t* ks = smem + L::OFF_K + s * L::KV_TILE;
+        uint8_t* vs = smem + L::OFF_V + s * L::KV_TILE;
+#pragma unroll
+        for (int half = 0; half < L::HALVES; ++half)
+          hopper::tma_load_3d(ks + half * KV_HALF, &map_k, &bars->full[s],
+                              kc + 64 * half, k0, b);
+#pragma unroll
+        for (int half = 0; half < L::HALVES; ++half)
+          hopper::tma_load_3d(vs + half * KV_HALF, &map_v, &bars->full[s],
+                              kc + 64 * half, k0, b);
       }
     }
   } else {                          // consumers
     hopper::regs_inc<232>();
-    consume(smem, bars, &map_o, locate(sh, kv_len), sh.causal);
+    consume<D>(smem, bars, &map_o, locate(sh, kv_len), sh.causal);
   }
 }
 
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_len, void* o, int B, int Sq, int Sk, int Hq,
                    int Hkv, int causal, cudaStream_t st) {
+  constexpr size_t SMEM = Layout<D>::SMEM;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM);
     if (e != cudaSuccess) return e;
     configured = true;
@@ -417,7 +447,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                              BQ / 2)))
     return e;
   const Shape sh{B, Sq, Sk, Hq, Hkv, causal, (Sq + BQ - 1) / BQ};
-  flash_attention_kernel<<<sh.n_qt * Hq * B, THREADS, SMEM, st>>>(
+  flash_attention_kernel<D><<<sh.n_qt * Hq * B, THREADS, SMEM, st>>>(
       mq, mk, mv, mo, static_cast<const __nv_bfloat16*>(v), kv_len,
       static_cast<__nv_bfloat16*>(o), sh);
   return cudaGetLastError();
@@ -425,19 +455,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// head_dim 128 only (the registered configs'). kv_len may be null: every
-// key is then valid. q, k, v and out must be 16-byte aligned (TMA).
+// head_dim 128 (every registered config but one) or 64
+// (granite-moe-1b-a400m). kv_len may be null: every key is then valid. q,
+// k, v and out must be 16-byte aligned (TMA).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* kv_len,
                                     void* out, int B, int Sq, int Sk, int Hq,
                                     int Hkv, int D_, int causal,
                                     void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || Sk <= 0 || D_ != D) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || Sk <= 0 || (D_ != 128 && D_ != 64))
+    return cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-  return launch(q, k, v, static_cast<const int*>(kv_len), out, B, Sq, Sk, Hq,
-                Hkv, causal, static_cast<cudaStream_t>(stream));
+  const int* kl = static_cast<const int*>(kv_len);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D_ == 128
+             ? launch<128>(q, k, v, kl, out, B, Sq, Sk, Hq, Hkv, causal, s)
+             : launch<64>(q, k, v, kl, out, B, Sq, Sk, Hq, Hkv, causal, s);
 }
 
 extern "C" const char* kernel_error_string(int err) {

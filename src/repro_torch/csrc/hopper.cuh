@@ -330,6 +330,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(TRANS_B));
 }
 
+// D (64 x 64, fp32) = A (64 x 16) * B (16 x 64) + (accumulate ? D : 0),
+// A bf16 in registers as for wgmma_m64n128k16_rs, B bf16 in shared memory,
+// K-major (TRANS_B 0) or N-major (1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}"
+      : HOPPER_D32_OPERANDS(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
 // ---- device: int8 wgmma ---------------------------------------------------
 
 #define HOPPER_D4 "{%0, %1, %2, %3}"

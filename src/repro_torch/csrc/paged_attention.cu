@@ -15,8 +15,9 @@
 // What bounds it on this card: device-memory bytes. Every valid position's
 // K and V row (2 * D * 2 bytes per KV head) is read once and used for G
 // dot products and G multiply-adds per element, 4 * G * D FLOPs on
-// 4 * D bytes: G (= 4 for llama31-8b, 8 for qwen3-30b-a3b) FLOPs per
-// byte, far under the ~295 FLOP/byte where the tensor cores would bound.
+// 4 * D bytes: G (1 for codeqwen1.5-7b, 4 for llama31-8b, 8 for
+// qwen3-30b-a3b, 48 for granite-34b) FLOPs per byte, far under the ~295
+// FLOP/byte where the tensor cores would bound.
 // At the served shapes a call moves 10-25 MB, 3-7 microseconds at 3.35
 // TB/s, so what decides its time is how many bytes each SM keeps in
 // flight and how long each block's chain of dependent steps is.
@@ -42,6 +43,16 @@
 //    exponentials and sum in registers with 3 shuffles each, and rescales
 //    its accumulators once; thread t owns dimension t of all G heads and
 //    adds the tile's 16 keys of V in fp32 FMAs: P is never rounded to bf16.
+//    A block has one thread per dimension (D 128: 4 warps; D 64: 2), and
+//    a thread copies one 16-byte chunk of two of a tile's keys.
+//  - At most 8 query heads a block, the columns of one mma's B operand: a
+//    group of G <= 8 pads the columns with zeros; a larger group (G 48,
+//    granite-34b's multi-query heads) is cut into G / 8 sub-groups of 8 on
+//    the grid's y (which then counts Hkv * G / 8 rows of blocks), each
+//    block reading its KV head's K and V itself. A sequence's K and V for
+//    the sub-groups after the first come from the 50 MB L2, and the
+//    sub-groups fill the card where one KV head a sequence would not (8
+//    sequences: 384 blocks, not 64).
 //  - Combine without a second round trip: after its tiles a block sends,
 //    through distributed shared memory, each other block the partial sums
 //    of the D / split dimensions that block combines, and its running max
@@ -62,20 +73,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int D = 128;            // head_dim, one thread per dimension
-constexpr int THREADS = D;        // 4 warps
-constexpr int NWARP = THREADS / 32;
 constexpr int TK = 16;            // keys a tile (one mma row block):
                                   // one rescale each
-constexpr int ROW = D + 8;        // a key's row in shared memory, padded
-                                  // so ldmatrix's 8 rows hit 32 banks
 constexpr int NS = 4;             // tiles in the ring
 constexpr int MAX_SPLIT = 8;      // blocks a cluster
 constexpr int SM_COUNT = 132;
 constexpr int BT_CAP = 256;       // page ids a block keeps (host-checked)
 constexpr float NEG_INF = -1e30f;
-static_assert(TK == 16 && THREADS == 128,
-              "a tile is one mma row block; a thread copies two of its keys");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -138,27 +142,40 @@ struct Shape {
   float scale;
 };
 
-template <int G>
-__global__ void __launch_bounds__(THREADS, 5)
+// D: head_dim, one thread a dimension. GB: query heads a block (<= 8, the
+// mma's columns); SUB: blocks a KV head's group is cut into, G = GB * SUB.
+// 5 blocks an SM at D 128 (the registers this leaves a thread), 10 at D 64
+template <int D, int GB, int SUB>
+__global__ void __launch_bounds__(D, 640 / D)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k_pool,
                        const __nv_bfloat16* __restrict__ v_pool,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ seq_lens,
                        __nv_bfloat16* __restrict__ out, const Shape sh) {
+  constexpr int THREADS = D, NWARP = THREADS / 32;
+  constexpr int ROW = D + 8;      // a key's row in shared memory, padded
+                                  // so ldmatrix's 8 rows hit 32 banks
+  constexpr int CH = D / 8;       // 16-byte chunks of a key's row
+  static_assert(GB >= 1 && GB <= 8 && D % 64 == 0 && THREADS / CH == 8 &&
+                    TK == 16,
+                "a tile is one mma row block of 16 keys and at most 8 heads; "
+                "a thread copies one chunk of two of its keys");
   __shared__ __align__(16) __nv_bfloat16 ring[NS][2][TK][ROW];  // K, V
-  __shared__ __align__(16) float s_p[NWARP][G][TK];
-  __shared__ float s_alpha[NWARP][G];
+  __shared__ __align__(16) float s_p[NWARP][GB][TK];
+  __shared__ float s_alpha[NWARP][GB];
   // what the cluster's blocks send this one: their partial sums for the
   // D / split dimensions it combines, and their m and l
-  __shared__ float recv[G * D];
-  __shared__ float recv_m[MAX_SPLIT][G], recv_l[MAX_SPLIT][G];
+  __shared__ float recv[GB * D];
+  __shared__ float recv_m[MAX_SPLIT][GB], recv_l[MAX_SPLIT][GB];
   __shared__ int s_bt[BT_CAP];
 
   cluster_arrive_relaxed();       // matched before the first remote store
-  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int rank = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / SUB;                  // the KV head
+  const int hq0 = h * GB * SUB + (blockIdx.y % SUB) * GB;  // first q head
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int Hq = sh.Hkv * G;
+  const int Hq = sh.Hkv * GB * SUB;
 
   // this block's tiles: [t0, t0 + per) of the row, from the shapes alone,
   // so its page ids load beside seq_len; a seq_len-0 row takes every
@@ -182,24 +199,24 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     qb[kk][0] = qb[kk][1] = 0;
-    if (gq < G && !idle) {
-      const __nv_bfloat16* qr = q + ((size_t)b * Hq + h * G + gq) * D;
+    if (gq < GB && !idle) {
+      const __nv_bfloat16* qr = q + ((size_t)b * Hq + hq0 + gq) * D;
       qb[kk][0] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + kq);
       qb[kk][1] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + kq + 8);
     }
   }
   __syncthreads();                // s_bt
 
-  // thread t copies keys t / 16 and t / 16 + 8, 16-byte chunk t % 16, of
+  // thread t copies keys t / CH and t / CH + 8, 16-byte chunk t % CH, of
   // K (not for an idle row: its scores are all 0) and V
   const size_t row_stride = (size_t)sh.Hkv * D;
-  const int c16 = t % 16;
+  const int c16 = t % CH;
   auto issue = [&](int i) {
     if (i < cnt) {
       const int st = i % NS;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int j = t / 16 + 8 * u, pos = (t0 + i) * TK + j;
+        const int j = t / CH + 8 * u, pos = (t0 + i) * TK + j;
         const bool valid = pos < len;
         const int pp = valid ? pos : t0 * TK;
         const int pi = pp / sh.page;
@@ -220,9 +237,9 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // heads 2 (l % 4) and 2 (l % 4) + 1, keys l / 4 and l / 4 + 8
   const int g0 = kq;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[G];
+  float acc[GB];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  for (int g = 0; g < GB; ++g) acc[g] = 0.f;
 
   for (int i = 0; i < cnt; ++i) {
     const int st = i % NS;
@@ -264,7 +281,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      if (g0 + e < G) {
+      if (g0 + e < GB) {
         s_p[warp][g0 + e][lane / 4] = p[e];
         s_p[warp][g0 + e][lane / 4 + 8] = p[e + 2];
         if (lane < 4) s_alpha[warp][g0 + e] = alpha[e];
@@ -274,7 +291,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
     // P V in fp32: thread t owns dimension t of every head
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] *= s_alpha[warp][g];
+    for (int g = 0; g < GB; ++g) acc[g] *= s_alpha[warp][g];
 #pragma unroll
     for (int k = 0; k < TK; k += 4) {
       float v[4];
@@ -282,7 +299,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e)
         v[e] = __bfloat162float(ring[st][1][k + e][t]);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         const float4 pk = *reinterpret_cast<const float4*>(&s_p[warp][g][k]);
         acc[g] = fmaf(pk.x, v[0], acc[g]);
         acc[g] = fmaf(pk.y, v[1], acc[g]);
@@ -302,7 +319,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   {
     float* dst = cluster.map_shared_rank(recv, t / dn);
 #pragma unroll
-    for (int g = 0; g < G; ++g) dst[(rank * G + g) * dn + t % dn] = acc[g];
+    for (int g = 0; g < GB; ++g) dst[(rank * GB + g) * dn + t % dn] = acc[g];
   }
   if (warp == 0 && lane < 4) {
     for (int r = 0; r < sh.split; ++r) {
@@ -310,7 +327,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       float* rl = cluster.map_shared_rank(&recv_l[rank][0], r);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        if (g0 + e < G) {
+        if (g0 + e < GB) {
           rm[g0 + e] = m[e];
           rl[g0 + e] = l[e];
         }
@@ -319,7 +336,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cluster_arrive_release();
   cluster_wait();                 // every block's partials are here
-  for (int idx = t; idx < G * dn; idx += THREADS) {
+  for (int idx = t; idx < GB * dn; idx += THREADS) {
     const int g = idx / dn, dd = idx % dn;
     float mx = NEG_INF;
     for (int r = 0; r < sh.split; ++r) mx = fmaxf(mx, recv_m[r][g]);
@@ -327,32 +344,33 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int r = 0; r < sh.split; ++r) {
       const float w = __expf(recv_m[r][g] - mx);
       den += recv_l[r][g] * w;
-      num += recv[(r * G + g) * dn + dd] * w;
+      num += recv[(r * GB + g) * dn + dd] * w;
     }
-    out[((size_t)b * Hq + h * G + g) * D + rank * dn + dd] =
+    out[((size_t)b * Hq + hq0 + g) * D + rank * dn + dd] =
         __float2bfloat16(den > 0.f ? num / den : 0.f);
   }
 }
 
-template <int G>
+template <int D, int GB, int SUB>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* block_tables, const void* seq_lens, void* out,
                    int B, int Hkv, int page, int max_pages,
                    cudaStream_t stream) {
   // split the row's tiles over a power of 2 of blocks, up to 8, fewer
   // where the row has fewer tiles or the blocks would be more than 8 an
-  // SM; from the shapes alone
+  // SM; from the shapes alone. A row is a (sequence, KV head, sub-group).
   const int tiles = (max_pages * page + TK - 1) / TK;
+  const long rows = (long)B * Hkv * SUB;
   int split = 1;
   while (split * 2 <= std::min(MAX_SPLIT, tiles) &&
-         (long)B * Hkv * split * 2 <= 8L * SM_COUNT)
+         rows * split * 2 <= 8L * SM_COUNT)
     split *= 2;
   const int per = (tiles + split - 1) / split;
   if (per * TK / page + 2 > BT_CAP) return cudaErrorInvalidValue;
   const Shape sh{Hkv, page, max_pages, split, per, 1.0f / sqrtf((float)D)};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, Hkv, B);
-  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.gridDim = dim3(split, Hkv * SUB, B);
+  cfg.blockDim = dim3(D, 1, 1);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -362,7 +380,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_attention_kernel<G>,
+      &cfg, paged_attention_kernel<D, GB, SUB>,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
@@ -373,30 +391,39 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// Instantiated for what the registered configs use: head_dim 128 with 4
-// query heads per KV head (llama31-8b, jamba-v0.1-52b) or 8
-// (qwen3-30b-a3b). A config that needs another (D, G) adds its
-// instantiation here and in the wrapper's list. q, the pools and out
-// 16-byte aligned (the rows are read 16 bytes at a time).
+// Instantiated for what the registered configs use, as (head_dim D,
+// query heads per KV head G): (128, 4) llama31-8b, jamba-v0.1-52b,
+// mixtral-8x7b and phi3-medium-14b; (128, 8) qwen3-30b-a3b; (128, 1)
+// codeqwen1.5-7b; (128, 6) nemotron-4-15b; (128, 48) granite-34b, as 6
+// sub-groups of 8; (64, 2) granite-moe-1b-a400m. A config that needs
+// another (D, G) adds its instantiation here and in the wrapper's list.
+// q, the pools and out 16-byte aligned (the rows are read 16 bytes at a
+// time).
 extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
                                     const void* v_pool,
                                     const void* block_tables,
                                     const void* seq_lens, void* out, int B,
                                     int Hq, int Hkv, int D_, int page,
                                     int max_pages, void* stream) {
-  if (Hkv <= 0 || D_ != D || page <= 0 || max_pages <= 0)
+  if (Hkv <= 0 || Hq % Hkv || page <= 0 || max_pages <= 0)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(k_pool) % 16 ||
       reinterpret_cast<uintptr_t>(v_pool) % 16)
     return cudaErrorMisalignedAddress;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hq == 4 * Hkv)
-    return launch<4>(q, k_pool, v_pool, block_tables, seq_lens, out, B, Hkv,
-                     page, max_pages, s);
-  if (Hq == 8 * Hkv)
-    return launch<8>(q, k_pool, v_pool, block_tables, seq_lens, out, B, Hkv,
-                     page, max_pages, s);
+  const int G = Hq / Hkv;
+#define PAGED_CASE(D, GB, SUB)                                             \
+  if (D_ == D && G == GB * SUB)                                            \
+    return launch<D, GB, SUB>(q, k_pool, v_pool, block_tables, seq_lens,   \
+                              out, B, Hkv, page, max_pages, s);
+  PAGED_CASE(128, 4, 1)
+  PAGED_CASE(128, 8, 1)
+  PAGED_CASE(128, 1, 1)
+  PAGED_CASE(128, 6, 1)
+  PAGED_CASE(128, 8, 6)
+  PAGED_CASE(64, 2, 1)
+#undef PAGED_CASE
   return cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (128,)        # compiled for llama31-8b's head_dim
+# compiled for the served head_dims: 128, and 64 (granite-moe-1b-a400m)
+HEAD_DIMS = (128, 64)
 
 
 def _lib():

@@ -13,10 +13,11 @@ import torch
 
 from repro_torch.kernels import build
 
-# compiled for the served head_dim and query heads per KV head:
-# llama31-8b (G 4) and qwen3-30b-a3b (G 8)
-HEAD_DIMS = (128,)
-GROUPS = (4, 8)
+# compiled for the served (head_dim, query heads per KV head): llama31-8b
+# (128, 4), qwen3-30b-a3b (128, 8), codeqwen1.5-7b (128, 1),
+# nemotron-4-15b (128, 6), granite-34b (128, 48) and granite-moe-1b-a400m
+# (64, 2)
+COMPILED = ((128, 4), (128, 8), (128, 1), (128, 6), (128, 48), (64, 2))
 
 
 def _lib():
@@ -60,10 +61,9 @@ def paged_attention_kernel(q, k_pool, v_pool, block_tables, seq_lens
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("paged_attention_kernel: q and the pools must be "
                          "16-byte aligned")
-    if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
-        raise ValueError(f"paged_attention_kernel: head_dim {D} / group "
-                         f"{Hq // Hkv} not compiled (have {HEAD_DIMS} / "
-                         f"{GROUPS})")
+    if (D, Hq // Hkv) not in COMPILED:
+        raise ValueError(f"paged_attention_kernel: (head_dim, group) "
+                         f"{(D, Hq // Hkv)} not compiled (have {COMPILED})")
     out = torch.empty_like(q)
     if B == 0:
         return out

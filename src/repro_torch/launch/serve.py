@@ -12,12 +12,13 @@ bf16, int8, fp8 (e4m3 weights dequantized to bf16, as the reference
 emulates it) or fp8_native (the same arithmetic: the reference has no
 native fp8 GEMM). `--device cpu` runs `reduced(arch, vocab=1024)` with
 the kernels' plain versions instead. Every arch of `configs` is served by
-name: llama31-8b, qwen3-30b-a3b, jamba-v0.1-52b, mixtral-8x7b and
-xlstm-350m; on the card `check_card` refuses what one card cannot serve
-(weights larger than its memory, such as mixtral-8x7b or jamba-v0.1-52b
-in bf16, and xLSTM in int8). It prices at the hardware it runs on:
-`cpu-node` on the CPU, and on the card the book entry of its name
-(`CARD_HW`; a card without one raises).
+name: llama31-8b, qwen3-30b-a3b, jamba-v0.1-52b, mixtral-8x7b,
+xlstm-350m, phi3-medium-14b, codeqwen1.5-7b, nemotron-4-15b, granite-34b
+and granite-moe-1b-a400m; on the card `check_card` refuses what one card
+cannot serve (weights larger than its memory, such as mixtral-8x7b or
+jamba-v0.1-52b in bf16, and xLSTM in int8). It prices at the hardware it
+runs on: `cpu-node` on the CPU, and on the card the book entry of its
+name (`CARD_HW`; a card without one raises).
 
 sim tier: the full configuration on the calibrated step-time model of
 `--hw` (default `h100-sxm`) over `--chips` chips, priced at that entry's
@@ -30,6 +31,8 @@ and prints the live $/M-tok.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import CostMeter, chip_hour_price
 from repro_torch.kernels.int8_matmul.kernel import K_MULTIPLE, N_MULTIPLE
 from repro_torch.models import init_params
+from repro_torch.models.model import unit_size
 from repro_torch.quant import BY_NAME
 from repro_torch.serving import (ArrivalSpec, Engine, EngineConfig,
                                  RealExecutor, SimExecutor, synth_requests)
@@ -119,13 +123,29 @@ def _int8_matrices(p, name=""):
             yield from _int8_matrices(v, name)
 
 
+def cut_depth(cfg, layers: int):
+    """`cfg` with only its first `layers` layers: every block kind of the
+    stack kept, so `layers` must be a whole number of its repeating units
+    (`models.model.unit_size`: jamba-v0.1-52b's 8, one attention layer and
+    7 Mamba layers)."""
+    unit = unit_size(cfg)
+    if not 0 < layers <= cfg.num_layers or layers % unit:
+        raise ValueError(f"{cfg.name}: {layers} layers is not a whole number "
+                         f"of its {unit}-layer units (at most "
+                         f"{cfg.num_layers})")
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
 def build_engine(arch: str, *, tier: str = "real", hw: str = "h100-sxm",
                  n_chips: int = 1, device="cuda", seed: int = 0,
-                 quant: str = "bf16") -> Engine:
+                 quant: str = "bf16", layers: Optional[int] = None
+                 ) -> Engine:
     """The real-tier engine: the full `arch` on the card (refused by
     `check_card` where one card cannot serve it), or a reduced one with
     `device="cpu"`. Weights are random, drawn from `seed`, and quantized
-    layer by layer to `quant` (a key of `quant.BY_NAME`).
+    layer by layer to `quant` (a key of `quant.BY_NAME`). `layers`: on the
+    card, only the first `layers` layers of the full stack, a whole number
+    of its repeating units (`cut_depth`), at full width.
 
     `tier="sim"`: the full `arch` on the step-time model of the book
     entry `hw` over `n_chips` chips, as the reference builds it; `device`
@@ -145,6 +165,8 @@ def build_engine(arch: str, *, tier: str = "real", hw: str = "h100-sxm",
         cfg, ecfg = reduced(arch, vocab=1024), CPU_ENGINE
     else:
         cfg, ecfg = get_config(arch), CARD_ENGINE
+        if layers is not None:
+            cfg = cut_depth(cfg, layers)
         check_card(cfg, quant,
                    torch.cuda.get_device_properties(device).total_memory)
     gen = torch.Generator(device=device).manual_seed(seed)

@@ -86,6 +86,8 @@ def _paged_inputs(rng, B, Hq, Hkv, D, page, maxp, P, dtype="bfloat16"):
     (3, 8, 1, 128, 16, 3, 64),
     (1, 4, 4, 64, 8, 6, 12),
     (4, 8, 2, 64, 8, 5, 64),
+    (2, 12, 2, 64, 8, 4, 16),            # G 6 (nemotron-4-15b's group)
+    (2, 48, 1, 128, 16, 3, 16),          # G 48 (granite-34b's MQA)
 ])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_paged_plain_matches_pallas_and_oracle(B, Hq, Hkv, D, page, maxp, P,

@@ -12,8 +12,10 @@ compute in fp32 and round once to bf16, so they may differ by one bf16
 step of the result. A paged-attention row with seq_len 0 gets the mean of
 V over every position its block-table row gathers. The planted-fault
 tests show that it rejects a kernel that drops one page or one key tile.
-Shapes use head_dim 128, the one the kernels are compiled for, and paged
-attention 4 or 8 query heads per KV head (llama31-8b, qwen3-30b-a3b).
+Shapes use the (head_dim, query heads per KV head) the kernels are
+compiled for: 128 with 4 or 8 (llama31-8b, qwen3-30b-a3b), 1
+(codeqwen1.5-7b), 6 (nemotron-4-15b) or 48 (granite-34b), and 64 with 2
+(granite-moe-1b-a400m); flash attention takes any group.
 
 The int8 matmul is held to its plain version exactly: the int32 sums do
 not depend on their order, and the one conversion and the one multiply by
@@ -194,6 +196,117 @@ def test_flash_kernel_matches_plain(gen, B, Sq, Sk, Hq, Hkv, D, causal):
     assert bf16_gate(out, ref) <= 1
 
 
+# (Hq, Hkv, D) of the served heads added for codeqwen1.5-7b,
+# nemotron-4-15b, granite-34b and granite-moe-1b-a400m
+NEW_HEADS = [(32, 32, 128), (48, 8, 128), (48, 1, 128), (16, 8, 64)]
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", NEW_HEADS)
+@pytest.mark.parametrize("lens,idle", [
+    (EDGE_LENS, 0), (SERVED_LENS, 0), ([0] * 4 + SERVED_LENS[4:], 4)])
+def test_paged_kernel_new_heads_at_edges_and_served_mix(gen, Hq, Hkv, D,
+                                                        lens, idle):
+    """Each new instantiation at the served shape (8 slots, page 16, 48
+    pages), at edge lengths and at a served decode mix, also with slots 0-3
+    idle; a seq_len-0 row is the mean of V over its block-table row."""
+    q, kp, vp, bt = _paged_inputs(gen, 8, Hq, Hkv, D, 16, 48)
+    bt[:idle] = 0
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n = paged_attention_kernel.launches
+    out = paged_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == n + 1
+    assert bf16_gate(out, paged_attention_ref(q, kp, vp, bt, lens)) <= 1
+    for b in range(8):
+        if lens[b] == 0:
+            assert bf16_gate(out[b], _mean_v(vp, bt[b], Hq)) <= 1
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", NEW_HEADS)
+def test_paged_kernel_new_heads_replay_in_a_cuda_graph(gen, Hq, Hkv, D):
+    """As `test_paged_kernel_replays_in_a_cuda_graph`, for each new
+    instantiation."""
+    q, kp, vp, bt = _paged_inputs(gen, 8, Hq, Hkv, D, 16, 48)
+    lens = torch.tensor(SERVED_LENS, dtype=torch.int32, device="cuda")
+    run = lambda: paged_attention(q, kp, vp, bt, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    q.copy_(_randn(gen, *q.shape))
+    lens.copy_(torch.tensor([0, 1, 16, 17, 256, 512, 700, 768],
+                            dtype=torch.int32))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, run())
+    assert bf16_gate(out, paged_attention_ref(q, kp, vp, bt, lens)) <= 1
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", NEW_HEADS)
+def test_gate_rejects_new_paged_kernels_without_last_page(gen, Hq, Hkv, D):
+    """Each new instantiation run on one page less than its plain version
+    fails the gate."""
+    q, kp, vp, bt = _paged_inputs(gen, 8, Hq, Hkv, D, 16, 48)
+    lens = torch.full((8,), 768, dtype=torch.int32, device="cuda")
+    short = lens.clone()
+    short[-1] -= 16
+    out = paged_attention(q, kp, vp, bt, short)
+    assert bf16_gate(out, paged_attention_ref(q, kp, vp, bt, lens)) > 1
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal", [
+    (8, 512, 512, 16, 8, True),        # granite-moe-1b-a400m's prefill
+    (2, 192, 192, 4, 1, True),         # MQA, not a multiple of 128
+    (1, 100, 37, 4, 2, False),         # ragged edges
+    (1, 70, 130, 4, 4, True),          # Sq != Sk, top-left mask
+    (3, 1, 1, 4, 1, True),             # one row, one key
+])
+def test_flash_kernel_head_dim_64_matches_plain(gen, B, Sq, Sk, Hq, Hkv,
+                                                causal):
+    q = _randn(gen, B, Sq, Hq, 64)
+    k, v = _randn(gen, B, Sk, Hkv, 64), _randn(gen, B, Sk, Hkv, 64)
+    n = flash_attention_kernel.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n + 1
+    assert bf16_gate(out, flash_attention_ref(q, k, v, causal=causal)) <= 1
+
+
+@pytest.mark.parametrize("lens", [[512, 0, 1, 63, 64, 300, 511, 37],
+                                  [512] * 4 + [0] * 4])   # a served mix
+def test_flash_kernel_head_dim_64_kv_len_matches_plain(gen, lens):
+    """granite-moe-1b-a400m's prefill heads (16/8, head_dim 64) with the
+    padding mask, a kv_len-0 sequence the mean of V."""
+    q = _randn(gen, 8, 512, 16, 64)
+    k, v = _randn(gen, 8, 512, 8, 64), _randn(gen, 8, 512, 8, 64)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+    ref = flash_attention_ref(q, k, v, causal=True, kv_len=kv_len)
+    assert bf16_gate(out, ref) <= 1
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(32, 32), (48, 8), (48, 1)])
+def test_flash_kernel_at_new_groups(gen, Hq, Hkv):
+    """Head_dim 128 at the groups of codeqwen1.5-7b (1), nemotron-4-15b (6)
+    and granite-34b (48), a served prefill of 8 x 512: the same kernel."""
+    q = _randn(gen, 8, 512, Hq, 128)
+    k, v = _randn(gen, 8, 512, Hkv, 128), _randn(gen, 8, 512, Hkv, 128)
+    out = flash_attention(q, k, v, causal=True)
+    assert bf16_gate(out, flash_attention_ref(q, k, v, causal=True)) <= 1
+
+
+def test_gate_rejects_flash_kernel_head_dim_64_without_last_key_tile(gen):
+    q = _randn(gen, 8, 512, 16, 64)
+    k, v = _randn(gen, 8, 512, 8, 64), _randn(gen, 8, 512, 8, 64)
+    out = flash_attention(q, k[:, :-64].contiguous(), v[:, :-64].contiguous(),
+                          causal=True)
+    assert bf16_gate(out, flash_attention_ref(q, k, v, causal=True)) > 1
+
+
 def test_gate_rejects_flash_kernel_without_last_key_tile(gen):
     """The kernel run without the last 64 keys, as a tile count off by
     one would give, fails the gate."""
@@ -282,16 +395,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         flash_attention(q.float(), q.float(), q.float())
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), q, q)
-    with pytest.raises(ValueError):       # head_dim 64 is not compiled
-        flash_attention(q[..., :64].contiguous(), q[..., :64].contiguous(),
-                        q[..., :64].contiguous())
+    with pytest.raises(ValueError):       # head_dim 96 is not compiled
+        flash_attention(q[..., :96].contiguous(), q[..., :96].contiguous(),
+                        q[..., :96].contiguous())
     kp = _randn(gen, 4, 8, 1, 128)
     bt = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError):
         paged_attention(_randn(gen, 1, 4, 128), kp, kp, bt.long(), lens)
-    with pytest.raises(ValueError):       # 2 query heads per KV head
-        paged_attention(_randn(gen, 1, 2, 128), kp, kp, bt, lens)
+    with pytest.raises(ValueError):       # 7 query heads per KV head
+        paged_attention(_randn(gen, 1, 7, 128), kp, kp, bt, lens)
+    kp96 = _randn(gen, 4, 8, 1, 96)       # head_dim 96 is not compiled
+    with pytest.raises(ValueError):
+        paged_attention(_randn(gen, 1, 4, 96), kp96, kp96, bt, lens)
     with pytest.raises(ValueError, match="aligned"):
         paged_attention(_misaligned(_randn(gen, 1, 4, 128)), kp, kp, bt, lens)
 
@@ -328,6 +444,16 @@ def test_int8_kernel_equals_plain(gen, M, K, N):
 def test_int8_kernel_at_lm_head_shape(gen, M, K, N):
     """mixtral-8x7b's lm_head at decode (vocab 32000, 500 tiles of 64
     columns): bit for bit."""
+    args = _int8_inputs(gen, M, K, N)
+    assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 6144, 256000), (8, 6144, 128),
+                                   (8, 13440, 4096)])
+def test_int8_kernel_at_new_served_shapes(gen, M, K, N):
+    """nemotron-4-15b's lm_head (vocab 256000, the widest N), granite-34b's
+    wk/wv at N 128 (one KV head) and codeqwen1.5-7b's down projection (K
+    13440) at decode: bit for bit."""
     args = _int8_inputs(gen, M, K, N)
     assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
 

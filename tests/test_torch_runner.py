@@ -2,9 +2,12 @@
 
 Both run `reduced(arch, vocab=1024)` on the same converted weights and
 the same numpy-drawn prompts, on the CPU (the port through its kernels'
-plain versions): llama31-8b and phi3-medium-14b (dense), qwen3-30b-a3b
-(MoE) and the hybrid jamba-v0.1-52b (Mamba + attention + MoE, 8 layers),
-and llama31-8b, phi3-medium-14b and jamba under int8. The schedule admits three slots, decodes, admits the
+plain versions): llama31-8b, phi3-medium-14b, codeqwen1.5-7b,
+nemotron-4-15b and granite-34b (dense), qwen3-30b-a3b and
+granite-moe-1b-a400m (MoE) and the hybrid jamba-v0.1-52b (Mamba +
+attention + MoE, 8 layers), and llama31-8b, phi3-medium-14b, jamba and
+the three new dense models under int8; some also at their full config's
+query heads per KV head. The schedule admits three slots, decodes, admits the
 fourth while the others hold their context, and decodes again. Both
 sides feed the same padding: MoE capacity is shared by every row of a
 group, padded rows and inactive slots included, so the reference's dropped
@@ -47,13 +50,19 @@ def _bf16_weights(tree, name=""):
     return tree
 
 
-def _setup(dtype, arch="llama31-8b", quant="bf16", moe=None, layers=2):
+def _setup(dtype, arch="llama31-8b", quant="bf16", moe=None, layers=2,
+           heads=None):
     """Reference params (`quant` int8: f32 params whose weight matrices
     are cast to bf16 and quantized, so everything but the int8 products
     runs in f32) and their conversion for the port. `moe`: fields of the
-    MoE config to replace on both sides."""
+    MoE config to replace on both sides; `heads`: (query heads, KV heads,
+    head_dim) on both sides."""
     jcfg = jax_reduced(arch, vocab=1024, layers=layers)
     tcfg = reduced(arch, vocab=1024, layers=layers)
+    if heads:
+        hq, hkv, d = heads
+        jcfg, tcfg = (dataclasses.replace(c, num_heads=hq, num_kv_heads=hkv,
+                                          head_dim=d) for c in (jcfg, tcfg))
     if moe:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
                                                                  **moe))
@@ -70,11 +79,11 @@ class _Pair:
     """Drives the JAX and the port step functions side by side."""
 
     def __init__(self, dtype, arch="llama31-8b", quant="bf16", moe=None,
-                 bt=None, num_pages=NUM_PAGES, layers=2):
+                 bt=None, num_pages=NUM_PAGES, layers=2, heads=None):
         """`bt`: the block tables, (batch, max_pages); by default slot b
         owns pages 1 + b * MAXP onwards."""
         self.jcfg, self.tcfg, self.jp, self.tp = _setup(dtype, arch, quant,
-                                                        moe, layers)
+                                                        moe, layers, heads)
         if bt is None:
             bt = np.arange(1, 1 + B * MAXP, dtype=np.int32).reshape(B, MAXP)
         nb = bt.shape[0]
@@ -182,8 +191,9 @@ def _run(pair, feed_from_jax, states=None):
     return streams_j, streams_t, diffs
 
 
-def _tokens_identical(arch="llama31-8b", quant="bf16", moe=None):
-    pair = _Pair("float32", arch, quant, moe)
+def _tokens_identical(arch="llama31-8b", quant="bf16", moe=None,
+                      heads=None):
+    pair = _Pair("float32", arch, quant, moe, heads=heads)
     sj, st, diffs = _run(pair, feed_from_jax=False)
     for a, b in zip(sj, st):
         np.testing.assert_array_equal(a, b)
@@ -204,14 +214,33 @@ def test_f32_tokens_identical():
                                         ("jamba-v0.1-52b", "bf16"),
                                         ("jamba-v0.1-52b", "int8"),
                                         ("phi3-medium-14b", "bf16"),
-                                        ("phi3-medium-14b", "int8")])
+                                        ("phi3-medium-14b", "int8"),
+                                        ("codeqwen1.5-7b", "bf16"),
+                                        ("codeqwen1.5-7b", "int8"),
+                                        ("nemotron-4-15b", "bf16"),
+                                        ("nemotron-4-15b", "int8"),
+                                        ("granite-34b", "bf16"),
+                                        ("granite-34b", "int8")])
 def test_f32_tokens_identical_moe_and_int8(arch, quant):
     """As above for the MoE model, the hybrid (7 Mamba layers, one
-    attention layer, MoE on every second) and phi3-medium-14b (dense, 4
-    query heads a KV head), and for int8 weight matrices under
+    attention layer, MoE on every second), phi3-medium-14b (dense, 4
+    query heads a KV head), codeqwen1.5-7b (one query head a KV head),
+    nemotron-4-15b (squared-ReLU MLP, layernorm) and granite-34b (gelu
+    MLP, one KV head), and for int8 weight matrices under
     `BY_NAME["int8"]` with f32 activations (the int8 products are exact on
     both sides)."""
     _tokens_identical(arch, quant)
+
+
+@pytest.mark.parametrize("arch,heads", [
+    ("nemotron-4-15b", (12, 2, 16)),         # G 6
+    ("granite-34b", (48, 1, 16)),            # G 48: one KV head
+    ("granite-moe-1b-a400m", (8, 4, 16)),    # G 2
+])
+def test_f32_tokens_identical_at_the_full_configs_group(arch, heads):
+    """At the full config's query heads per KV head (`reduced` gives 4 or
+    2), head_dim 16 on the reduced width: tokens and K/V as above."""
+    _tokens_identical(arch, heads=heads)
 
 
 def test_jamba_f32_states_match():
@@ -347,6 +376,47 @@ class _Logits:
     def pop(self):
         jax.effects_barrier()
         return self.j.pop()[:, 0], self.t.pop()[:, 0]
+
+
+GRANITE_MOE_ROUTING = dict(num_experts=32, top_k=8, group_size=256)
+
+
+def test_granite_moe_f32_pools_and_logits_with_its_routing(monkeypatch):
+    """Reduced granite-moe-1b-a400m with its own routing (32 experts,
+    top-8, groups of 256 tokens), f32 parameters, both sides fed the
+    reference's tokens. After every call the K/V pools agree within one
+    bf16 step (f32 K/V agree to fp32 rounding before the bf16 store, which
+    can round to the neighbouring value: 2**-7 at |x| < 2; seen: 2.4e-4),
+    and the fp32 logits of the slots that took part within 1e-5 of their
+    largest magnitude (the same f32 products summed in another order;
+    seen: 4.9e-6). Tokens
+    would show nothing: with tied random embeddings greedy decoding
+    repeats each slot's last prompt token."""
+    logits = _Logits(monkeypatch)
+    pair = _Pair("float32", "granite-moe-1b-a400m", moe=GRANITE_MOE_ROUTING)
+    rng = np.random.default_rng(11)
+    kv, logit_diffs = [], []
+
+    def record(mask):
+        lj, lt = logits.pop()
+        assert lt.dtype == np.float32
+        logit_diffs.append(float(np.abs(lj[mask] - lt[mask]).max())
+                           / float(np.abs(lj[mask]).max()))
+        kv.append(pair.pool_diff())
+
+    cur = np.zeros(B, np.int32)
+    active = LENS_1 > 0
+    for lens in (LENS_1, LENS_2):
+        fj, _ = pair.prefill(_prompts(rng, lens), lens)
+        record(lens > 0)
+        cur[lens > 0] = fj[lens > 0]
+        active = active | (lens > 0)
+        for _ in range(STEPS):
+            nj, _ = pair.decode(cur, active)
+            record(active)
+            cur[active] = nj[active]
+    assert max(kv) <= 2 ** -7, kv
+    assert max(logit_diffs) <= 1e-5, logit_diffs
 
 
 def _xlstm_states(pair):

@@ -171,6 +171,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.simulate.step_time", "repro_torch.core.sweep",
             "repro_torch.experiments.runner",
             "repro_torch.configs.phi3_medium_14b",
+            "repro_torch.configs.codeqwen1_5_7b",
+            "repro_torch.configs.nemotron_4_15b",
+            "repro_torch.configs.granite_34b",
+            "repro_torch.configs.granite_moe_1b_a400m",
             "repro_torch.serving.fleet", "repro_torch.serving.fleet_jit",
             "repro_torch.serving.autoscale", "repro_torch.serving.precision",
             "repro_torch.kernels.fleet_loop.kernel",

@@ -28,7 +28,8 @@ from repro_torch.core import chip_hour_price
 from repro_torch.launch import serve as tserve
 
 ARCHS = ("llama31-8b", "qwen3-30b-a3b", "jamba-v0.1-52b", "mixtral-8x7b",
-         "xlstm-350m")
+         "xlstm-350m", "codeqwen1.5-7b", "nemotron-4-15b", "granite-34b",
+         "granite-moe-1b-a400m")
 HWS = ("tpu-v5e", "tpu-v5p", "tpu-v6e", "cpu-node", "h100-sxm")
 
 
@@ -120,6 +121,16 @@ def _printed(main, argv):
 def test_serve_sim_tier_prints_the_reference_text():
     argv = ["--tier", "sim", "--hw", "tpu-v5e", "--lam", "5",
             "--requests", "200"]
+    text = _printed(tserve.main, argv)
+    assert text == _printed(jserve.main, argv)
+    assert "completed 200/200" in text
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "nemotron-4-15b",
+                                  "granite-34b", "granite-moe-1b-a400m"])
+def test_serve_sim_tier_prints_the_reference_text_for_each_arch(arch):
+    argv = ["--tier", "sim", "--hw", "tpu-v5e", "--arch", arch, "--lam",
+            "5", "--requests", "200"]
     text = _printed(tserve.main, argv)
     assert text == _printed(jserve.main, argv)
     assert "completed 200/200" in text

@@ -1,5 +1,6 @@
 """`chip_smoke.py`'s card-vs-CPU verdicts for mixtral-8x7b in int8,
-jamba-v0.1-52b in int8 and xlstm-350m in bf16, run on the CPU with both sides on the CPU
+jamba-v0.1-52b in int8, xlstm-350m in bf16, granite-34b in int8 and
+granite-moe-1b-a400m in bf16, run on the CPU with both sides on the CPU
 (`scripts/small_check_sensitivity.py`): identical sides pass, rounding
 noise (one bf16 step on a share of the operations' results, as dense as
 an H100's differences from the CPU) passes, and each planted fault
@@ -42,6 +43,14 @@ def _sensitivity():
     ("xlstm-350m", "bf16", ["as an H100 rounds, seed 4"],
      ["decode drops the carried mlstm state",
       "decode drops the carried slstm state"]),
+    # seed 3: the fewest tokens equal of the eight seeds (88.9%); every
+    # operation nudged: the fewest K/V cells within 0.1 (98.9%)
+    ("granite-34b", "int8",
+     ["as an H100 rounds, seed 3", "every operation, 100.0% nudged"],
+     ["decode drops each context's last page"]),
+    # seed 0: the fewest K/V cells within 0.02 of the eight seeds (99.5%)
+    ("granite-moe-1b-a400m", "bf16", ["as an H100 rounds, seed 0"],
+     ["decode drops each context's last page"]),
 ])
 def test_verdict_passes_rounding_noise_and_fails_faults(arch, quant, passing,
                                                         failing):
@@ -56,7 +65,9 @@ def test_verdict_passes_rounding_noise_and_fails_faults(arch, quant, passing,
 
 @pytest.mark.parametrize("arch,quant", [("mixtral-8x7b", "int8"),
                                         ("jamba-v0.1-52b", "int8"),
-                                        ("xlstm-350m", "bf16")])
+                                        ("xlstm-350m", "bf16"),
+                                        ("granite-34b", "int8"),
+                                        ("granite-moe-1b-a400m", "bf16")])
 def test_identical_sides_pass(arch, quant):
     cfg, params = chip_smoke.small_model(arch, quant)
     sides = chip_smoke.drive_small(cfg, quant, params,

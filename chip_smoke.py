@@ -19,10 +19,13 @@ Phases, each of which exits non-zero on failure:
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b (and the int8
      GEMM at mixtral-8x7b's, phi3-medium-14b's and nemotron-4-15b's
-     lm_heads, N 32000, 100352 and 256000, granite-34b's wk/wv at N 128
-     and codeqwen1.5-7b's down projection at K 13440); the attention
-     kernels at every (head_dim, group) they are compiled for
-     (`ATTN_ARCHS`: 128 with G 4, 8, 1, 6 and 48, and 64 with G 2). The
+     lm_heads, N 32000, 100352 and 256000, granite-34b's wk/wv at N 128,
+     codeqwen1.5-7b's down projection at K 13440 and xlstm-350m's sLSTM
+     projections at K or N 1365, in rows padded to 1376 bytes whose
+     padding holds random codes); the attention kernels at every
+     (head_dim, group) they are compiled for (`ATTN_ARCHS`: 128 with G 4,
+     8, 1, 6, 48 and 7, and 64 with G 2), and flash without a mask at
+     whisper-base's 1500 frames (D 64, G 1). The
      attention kernels in bf16 with |kernel - plain| <= 1e-3 + 2**-7
      |plain| on every element (one bf16 step of the result;
      `repro_torch.kernels.bf16_gate`; flash also with the prefill's
@@ -34,7 +37,9 @@ Phases, each of which exits non-zero on failure:
      the last key tile or the last 128-wide K tile dropped, the scan's
      decode step with h0 read as zeros, or its prefill without its last
      chunk of time steps; the int8 fault must change more than 90% of the
-     outputs). The scan's prefill grid must fit the card in one wave
+     outputs, and at K 1365 it drops the ragged tail: K run as 1360;
+     without a mask the last key tile of 1500 frames, its 28 keys, is
+     dropped). The scan's prefill grid must fit the card in one wave
      (`ssm_scan.kernel.layout`, from the occupancy API). The
      int8 weights are stored K-major, as the model stores them. A paged
      row with seq_len 0 must be the mean of V over its block-table row
@@ -52,8 +57,11 @@ Phases, each of which exits non-zero on failure:
      qwen3-30b-a3b in bf16, mixtral-8x7b in int8 with its own routing,
      phi3-medium-14b in int8, codeqwen1.5-7b in bf16, nemotron-4-15b and
      granite-34b in int8, granite-moe-1b-a400m in bf16 with its own
-     routing, held by its K/V and fp32 logits, 2 layers, the last four at
-     their full config's head_dim and group; jamba-v0.1-52b in bf16 and
+     routing, held by its K/V and fp32 logits, qwen2-vl-7b in bf16, 2
+     layers, the last five at their full config's head_dim and group;
+     whisper-base in bf16 through `models.prefill` and `decode_step` (2 +
+     2 layers, 8 heads of 64, 1500 frames), held by K/V, cross-attention
+     K/V and fp32 logits; jamba-v0.1-52b in bf16 and
      int8, 8 layers; xlstm-350m in bf16, 4 layers, held by its states and
      fp32 logits) through the kernels on the card against the same models
      through the plain versions on the CPU; every check is printed with
@@ -73,12 +81,16 @@ Phases, each of which exits non-zero on failure:
      squared-ReLU MLP, layernorm, vocab 256000), granite-34b in int8 and
      bf16 (88 layers, 48/1 heads, gelu MLP) and granite-moe-1b-a400m in
      bf16 (24 MoE layers: 32 experts, top-8; head_dim 64; tied
-     embeddings). Depth cut (`DEPTH_CUTS`) to keep the run in its time:
+     embeddings), qwen2-vl-7b in bf16 and int8 (28 layers, 28/4 heads,
+     M-RoPE over equal positions) and xlstm-350m in int8 (its sLSTM
+     projections at K or N 1365). Depth cut (`DEPTH_CUTS`) to keep the run
+     in its time:
      qwen3-30b-a3b, jamba-v0.1-52b and mixtral-8x7b in fp8 serve their
      first 8 layers (jamba's one whole unit: 1 attention, 7 Mamba, 4
      MoE), then qwen3-30b-a3b and phi3-medium-14b in bf16 their first 8
-     and xlstm-350m its first 4, each at full width with every block
-     kind and kernel of its path; every int8 path keeps full depth. Each path prints the card's
+     and xlstm-350m in bf16 and int8 its first 4, each at full width with
+     every block kind and kernel of its path; every other int8 path keeps
+     full depth. Each path prints the card's
      peak allocated memory. Every request must finish with its token
      count, the K/V pools and recurrent states must hold no NaN and no
      infinity but the -inf
@@ -89,7 +101,13 @@ Phases, each of which exits non-zero on failure:
      Mamba layer per call and, under int8, one int8 launch per `linear`
      per call (225 for llama31-8b and codeqwen1.5-7b, 193 for
      qwen3-30b-a3b and nemotron-4-15b, 177 for jamba-v0.1-52b, 129 for
-     mixtral-8x7b, 281 for phi3-medium-14b, 529 for granite-34b). The
+     mixtral-8x7b, 281 for phi3-medium-14b, 529 for granite-34b, 197 for
+     qwen2-vl-7b, 18 for xlstm-350m's 4 layers), and every call's fp32
+     logits finite. Then the contiguous-cache API: whisper-base at full
+     width and depth (6 + 6 layers) through `models.prefill` over 8 slots
+     of 1500 frames and a 440-token prompt and 8 `decode_step`s, its
+     counts set to 0 before it: flash 18 launches, 12 without a mask, no
+     other kernel; finite logits and cache. The
      meter prices at the card's hardware-book entry
      (`launch.serve.real_tier_hw`: `h100-sxm`), and each prefill call's
      and decode step's work and wall time is logged for phase 6;
@@ -130,8 +148,8 @@ Phases, each of which exits non-zero on failure:
      to 0 before it), K/V finite, the meter's average finite and positive.
      Then the example's sim half on `h100-sxm`, and the same traffic and
      engine on the sim tier beside the real readings.
-Then `main_paths`, `sim_tier`, `fleet`, `live_validation` and `kernels`
-JSON lines, the
+Then `main_paths`, `contiguous_api`, `sim_tier`, `fleet`,
+`live_validation` and `kernels` JSON lines, the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {...}}`. Needs no network and imports no JAX.
 """
@@ -159,12 +177,18 @@ EXP_RATE = 132 * 16 * 1.98e9
 # served shapes: 8 slots of 512 + 256 tokens at page 16; the attention
 # kernels at each (head_dim, query heads per KV head) they are compiled
 # for, with the heads of the arch that serves it (`heads`): G 4 and 8 at
-# head_dim 128 (llama31-8b, qwen3-30b-a3b), G 1, 6 and 48 (codeqwen1.5-7b,
-# nemotron-4-15b, granite-34b), and head_dim 64 at G 2
-# (granite-moe-1b-a400m)
+# head_dim 128 (llama31-8b, qwen3-30b-a3b), G 1, 6, 48 and 7
+# (codeqwen1.5-7b, nemotron-4-15b, granite-34b, qwen2-vl-7b), and head_dim
+# 64 at G 2 (granite-moe-1b-a400m)
 B, PAGE, MAXP = 8, 16, 48
 ATTN_ARCHS = ("llama31-8b", "qwen3-30b-a3b", "codeqwen1.5-7b",
-              "nemotron-4-15b", "granite-34b", "granite-moe-1b-a400m")
+              "nemotron-4-15b", "granite-34b", "granite-moe-1b-a400m",
+              "qwen2-vl-7b")
+# whisper-base on the contiguous-cache API (`models.prefill`,
+# `models.decode_step`): 8 slots of 1500 stubbed audio frames, a prompt of
+# 440 tokens and 8 decode steps (448 tokens: the decoder's context); its
+# encoder's attention and the cross-attention run flash without a mask
+WHISPER = dict(batch=8, frames=1500, prompt=440, steps=8)
 # a served decode step's contexts: 8 slots of 512 prompt tokens, 8-256
 # tokens into their answers
 SERVED_LENS = [520, 555, 591, 626, 662, 697, 733, 768]
@@ -196,6 +220,14 @@ INT8_SHAPES = [
     (8, 6144, 256000, "nemotron-4-15b lm_head"),
     (8, 6144, 128, "granite-34b decode wk/wv"),
     (8, 13440, 4096, "codeqwen1.5-7b decode down"),
+    (8, 1365, 1024, "xlstm-350m decode slstm_down"),
+    (8, 1024, 1365, "xlstm-350m decode slstm_up"),
+    (4096, 1365, 1024, "xlstm-350m prefill slstm_down"),
+    (4096, 1024, 1365, "xlstm-350m prefill slstm_up"),
+    (8, 3584, 512, "qwen2-vl-7b decode wk/wv"),
+    (8, 18944, 3584, "qwen2-vl-7b decode down"),
+    (8, 3584, 152064, "qwen2-vl-7b lm_head"),
+    (4096, 3584, 18944, "qwen2-vl-7b prefill gate/up"),
 ]
 # the selective scan at jamba-v0.1-52b's served shapes (B, S, d_inner, N):
 # prefill of 8 slots at Lp 512 from a zero state, and a decode step
@@ -209,18 +241,21 @@ MAIN_PATHS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
               ("codeqwen1.5-7b", "bf16"), ("codeqwen1.5-7b", "int8"),
               ("nemotron-4-15b", "bf16"), ("nemotron-4-15b", "int8"),
               ("granite-34b", "int8"), ("granite-34b", "bf16"),
-              ("granite-moe-1b-a400m", "bf16")]
+              ("granite-moe-1b-a400m", "bf16"), ("qwen2-vl-7b", "bf16"),
+              ("qwen2-vl-7b", "int8"), ("xlstm-350m", "int8")]
 # main paths served at a cut depth (`launch.serve.cut_depth`), so that the
 # whole run keeps within its time on a slow host too: the three fp8
 # paths, whose int8 twins keep full depth, then qwen3-30b-a3b and
 # phi3-medium-14b in bf16, whose int8 twins run the same attention
 # kernels at full depth, and xlstm-350m, which runs no kernel of the
-# port; each keeps every block kind and kernel of its path (jamba's 8
-# layers are one whole unit: 1 attention, 7 Mamba, 4 MoE; xlstm's 4 two
-# mLSTM and two sLSTM blocks)
+# port, and its int8 twin, which runs only the int8 kernel; each keeps
+# every block kind and kernel of its path (jamba's 8 layers are one whole
+# unit: 1 attention, 7 Mamba, 4 MoE; xlstm's 4 two mLSTM and two sLSTM
+# blocks)
 DEPTH_CUTS = {("qwen3-30b-a3b", "fp8"): 8, ("jamba-v0.1-52b", "fp8"): 8,
               ("mixtral-8x7b", "fp8"): 8, ("qwen3-30b-a3b", "bf16"): 8,
-              ("phi3-medium-14b", "bf16"): 8, ("xlstm-350m", "bf16"): 4}
+              ("phi3-medium-14b", "bf16"): 8, ("xlstm-350m", "bf16"): 4,
+              ("xlstm-350m", "int8"): 4}
 # phase 4: narrow models, the kernels on the card against the plain
 # versions on the CPU; those in REAL_ROUTING route as their full config,
 # those in SMALL_HEADS take these (query heads, KV heads, head_dim): the
@@ -228,13 +263,15 @@ DEPTH_CUTS = {("qwen3-30b-a3b", "fp8"): 8, ("jamba-v0.1-52b", "fp8"): 8,
 REAL_ROUTING = {"mixtral-8x7b", "granite-moe-1b-a400m"}
 SMALL_HEADS = {"codeqwen1.5-7b": (4, 4, 128), "nemotron-4-15b": (12, 2, 128),
                "granite-34b": (48, 1, 128),
-               "granite-moe-1b-a400m": (8, 4, 64)}
+               "granite-moe-1b-a400m": (8, 4, 64),
+               "qwen2-vl-7b": (14, 2, 128), "whisper-base": (8, 8, 64)}
 SMALL_CHECKS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
                 ("qwen3-30b-a3b", "bf16"), ("jamba-v0.1-52b", "bf16"),
                 ("jamba-v0.1-52b", "int8"), ("mixtral-8x7b", "int8"),
                 ("xlstm-350m", "bf16"), ("phi3-medium-14b", "int8"),
                 ("codeqwen1.5-7b", "bf16"), ("nemotron-4-15b", "int8"),
-                ("granite-34b", "int8"), ("granite-moe-1b-a400m", "bf16")]
+                ("granite-34b", "int8"), ("granite-moe-1b-a400m", "bf16"),
+                ("qwen2-vl-7b", "bf16")]
 # phases 5 and 6: 8 chat requests (512 in : 256 out) that overlap
 MAIN_SPEC = dict(lam=4.0, n_requests=8, io_shape="chat", scale=1.0, seed=0)
 # phase 6: the sim tier on the card's own hardware-book entry, and the
@@ -562,6 +599,80 @@ def check_flash(gen, arch):
     }
 
 
+def check_flash_bidirectional(gen):
+    """Flash at whisper-base's shapes (8 heads of 64 on 8 KV heads, 8
+    slots), two instantiations, each within `bf16_gate` of the plain
+    version and timed beside SDPA. Without a mask at 1500 frames (23 key
+    tiles of 64 and one of 28): the encoder's self-attention (Sq = Sk =
+    1500), the decoder's cross-attention over the frames (Sq = the
+    prompt, 440) and one decode row; the planted fault drops the last key
+    tile (the 28 keys past 1472), which every row reads. Causal at the
+    decoder's prompt (Sq = Sk = 440: 6 key tiles of 64 and one of 56);
+    the planted fault drops that last 56-key tile, which the last 56
+    query rows read."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    dev, (hq, hkv, d) = "cuda", heads("whisper-base")
+    Bw, Se, S = WHISPER["batch"], WHISPER["frames"], WHISPER["prompt"]
+    mk = lambda S, h: torch.randn(Bw, S, h, d, generator=gen,
+                                  device=dev).bfloat16()
+    variants = []
+    for causal, L in ((False, Se), (True, S)):
+        sets = [(mk(L, hq), mk(L, hkv), mk(L, hkv)) for _ in range(2)]
+        pairs = []
+        for Sq in ((Se, S, 1) if not causal else (S,)):
+            q, k, v = sets[0][0][:, :Sq].contiguous(), sets[0][1], \
+                sets[0][2]
+            out = flash_attention_kernel(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            pairs.append((out, flash_attention_ref(q, k, v, causal=causal)))
+        if causal:      # the second set too: the timed inputs
+            q, k, v = sets[1]
+            out = flash_attention_kernel(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            pairs.append((out, flash_attention_ref(q, k, v, causal=True)))
+        q, k, v = sets[0]
+        last = (L - 1) // 64 * 64
+        what = "no mask" if not causal else "causal"
+        err, gate, fault = hold(
+            f"flash attention (whisper-base, {what})", pairs,
+            flash_attention_kernel(q, k[:, :last].contiguous(),
+                                   v[:, :last].contiguous(), causal=causal),
+            pairs[0][1])
+        share = 0.5 if causal else 1.0
+        nbytes = 2 * (2 * Bw * L * hq * d + 2 * Bw * L * hkv * d)
+        flops = 4 * Bw * hq * L * L * d * share
+        b_ms, b_by = bound(nbytes, flops)
+        ms = device_ms(lambda q, k, v: flash_attention_kernel(
+            q, k, v, causal=causal), sets)
+        lib_args = [tuple(t.transpose(1, 2).contiguous() for t in a)
+                    for a in sets]
+        lib_ms = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), lib_args)
+        also = (f" (checked also at Sq={S} and 1)" if not causal else
+                " (the decoder's prompt)")
+        variants.append({
+            "max_abs_err": err, "gate": gate, "fault": fault,
+            "fault_desc": f"the last key tile dropped ({L} keys run as "
+                          f"{last})",
+            "ms": ms,
+            "plain_ms": device_ms(lambda q, k, v: flash_attention_ref(
+                q, k, v, causal=causal), sets, per_graph=2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library_note": f"SDPA, {what}",
+            "tflops": flops / ms * 1e-9, "share_of_bound": b_ms / ms,
+            "x_library": ms / lib_ms,
+            "shape": f"whisper-base: B={Bw} Sq=Sk={L} Hq={hq} Hkv={hkv} "
+                     f"D={d} {what}{also}",
+            "instantiation": {"head_dim": d, "group": hq // hkv,
+                              "causal": causal, "path": "whisper-base"},
+        })
+        del sets, pairs, lib_args
+    return variants
+
+
 def ssm_inputs(gen, Bsz, S, di, N, with_h0):
     """Unit-normal u, B, C, D and h0, dt = softplus(unit normal) and the
     model's A = -(1..N) per channel, all fp32 on the card."""
@@ -663,30 +774,51 @@ def int_mm_rows(x):
     return x if M > 16 else torch.cat([x, x.new_zeros(17 - M, x.shape[1])])
 
 
+def _int_mm_operands(x, w, xs, ws, Kp, Np):
+    """`int_mm`'s operands for an (M, K) x (K, N) product: x with zero
+    rows to M = 17 where M <= 16; at a K or N past the true ones (Kp, Np)
+    copies of x, w (K-major) and ws zero-padded to them."""
+    (M, K), N = x.shape, w.shape[1]
+    if (Kp, Np) != (K, N):
+        xp = x.new_zeros(M, Kp)
+        xp[:, :K] = x
+        wp = w.new_zeros(Np, Kp)
+        wp[:N, :K] = w.mT
+        wsp = ws.new_zeros(1, Np)
+        wsp[:, :N] = ws
+        x, w, ws = xp, wp.mT, wsp
+    return int_mm_rows(x), w, xs, ws
+
+
 def check_int8(gen):
     """The int8 kernel bit for bit against its plain version at every
-    served shape, on weights stored K-major as the model stores them; a
-    planted fault (the last 128-wide K tile dropped: a K-major (K - 128,
-    N) weight) must change more than 90% of the outputs. Timed at every
-    shape, beside `torch._int_mm` on the same K-major weight and on a
-    row-major copy."""
-    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_kernel
+    served shape, on weights stored K-major as the model stores them (rows
+    padded to a multiple of 16 bytes where K is not one, the activation's
+    rows too, the padding filled with random codes that must not be
+    read); a planted fault (the last 128-wide K tile dropped, or at a K
+    that is no multiple of 16 its ragged tail: K 1365 run as 1360) must
+    change more than 90% of the outputs. Timed at every shape, beside
+    `torch._int_mm` on the same K-major weight and on a row-major copy
+    (at a K or N that is no multiple of 8, on zero-padded copies)."""
+    from repro_torch.kernels.int8_matmul.kernel import (
+        ROW_BYTES, int8_matmul_kernel, padded)
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
-    from repro_torch.quant import k_major
     dev = "cuda"
     variants = []
     for M, K, N, what in INT8_SHAPES:
         # enough weight sets that cycling over them overflows the 50 MB L2,
         # as a decode step's weights, each read once, do
         n_sets = max(2, min(6, -(-120_000_000 // (K * N))))
+        ld = padded(K, ROW_BYTES)
         sets = []
         for _ in range(n_sets):
             sets.append((
-                torch.randint(-127, 128, (M, K), generator=gen, device=dev,
-                              dtype=torch.int8),
-                # (K, N) stored K-major: the .mT of a contiguous (N, K)
-                torch.randint(-127, 128, (N, K), generator=gen, device=dev,
-                              dtype=torch.int8).mT,
+                torch.randint(-127, 128, (M, ld), generator=gen, device=dev,
+                              dtype=torch.int8)[:, :K],
+                # (K, N) stored K-major: the .mT of the first K columns of
+                # a contiguous (N, ld)
+                torch.randint(-127, 128, (N, ld), generator=gen, device=dev,
+                              dtype=torch.int8)[:, :K].mT,
                 torch.rand(1, generator=gen, device=dev) * 0.02 + 1e-3,
                 torch.rand(1, N, generator=gen, device=dev) * 0.02 + 1e-3))
         x, w, xs, ws = sets[0]
@@ -697,8 +829,8 @@ def check_int8(gen):
             fail(f"int8 matmul at {(M, K, N)} is not bit-exact: "
                  f"{int((out != ref).sum())} elements differ, max abs "
                  f"{max_abs(out, ref)}")
-        faulty = int8_matmul_kernel(x[:, :-128].contiguous(),
-                                    k_major(w[:-128]), xs, ws)
+        tail = K % ROW_BYTES or 128
+        faulty = int8_matmul_kernel(x[:, :K - tail], w[:K - tail], xs, ws)
         n_bad = int((faulty != ref).sum())
         if not n_bad > 0.9 * M * N:
             fail(f"int8 matmul at {(M, K, N)}: the planted fault changed "
@@ -708,23 +840,33 @@ def check_int8(gen):
         b_ms, b_by = bound(nbytes, ops, INT8_PEAK)
         del out, ref, faulty
         ms = device_ms(int8_matmul_kernel, sets)
-        lib_sets = [(int_mm_rows(a[0]),) + a[1:] for a in sets]
+        # torch._int_mm takes K and N multiples of 8 only: at another K or
+        # N it runs on copies zero-padded to multiples of 16 bytes (K to
+        # the model's row stride `ld`), whose zero codes add nothing
+        Kp, Np = (K, N) if not (K % 8 or N % 8) else (
+            ld, padded(N, ROW_BYTES))
+        lib_sets = [_int_mm_operands(*a, Kp, Np) for a in sets]
         lib_ms = device_ms(int_mm, lib_sets)
         row_sets = [(a[0], a[1].contiguous()) + a[2:] for a in lib_sets]
         lib_row_ms = device_ms(int_mm, row_sets)
         del row_sets, lib_sets
+        note = ("torch._int_mm + scaling on the K-major weight (on a "
+                f"row-major copy: {lib_row_ms:.4f} ms)" + (
+                    "" if M > 16 else f", x padded from M={M} to M=17") + (
+                    "" if (Kp, Np) == (K, N) else
+                    f", K and N zero-padded from {K}, {N} to {Kp}, {Np}"))
         variants.append({
             "max_abs_err": 0.0, "fault": {
                 "elements_differing": n_bad, "of": M * N},
-            "fault_desc": "the last 128-wide K tile dropped",
+            "fault_desc": (f"the ragged K tail dropped ({K} run as "
+                           f"{K - tail})" if K % ROW_BYTES
+                           else "the last 128-wide K tile dropped"),
             "ms": ms,
             "plain_ms": device_ms(int8_matmul_ref, sets, per_graph=2),
             "bound_ms": b_ms, "bound_by": b_by,
             "tops": ops / ms * 1e-9, "x_bound": ms / b_ms,
             "library_ms": lib_ms, "library_row_major_ms": lib_row_ms,
-            "library_note": "torch._int_mm + scaling on the K-major weight "
-                            f"(on a row-major copy: {lib_row_ms:.4f} ms)" + (
-                "" if M > 16 else f", x padded from M={M} to M=17"),
+            "library_note": note,
             "shape": f"{what}: M={M} K={K} N={N}",
         })
         del sets
@@ -1073,12 +1215,15 @@ def layer_counts(cfg):
 def int8_launches_per_call(cfg) -> int:
     """`linear` calls of one prefill call or decode step: four projections
     per attention layer (wq, wk, wv, wo) and per Mamba layer (in_proj,
-    x_proj, dt_proj, out_proj), the dense MLPs' projections (the MoE
-    experts dequantize and never reach the kernel), and the lm_head. (No
-    int8 path serves xLSTM blocks or tied embeddings on the card.)"""
+    x_proj, dt_proj, out_proj), six per mLSTM block (up, q, k, v, the
+    gates, down) and three per sLSTM block (wx, up, down: its recurrent
+    `slstm_wr` is dequantized), the dense MLPs' projections (the MoE
+    experts dequantize and never reach the kernel), and the lm_head unless
+    the embeddings are tied."""
     n = layer_counts(cfg)
     mlp = 3 if cfg.mlp_kind == "swiglu" else 2
-    return 4 * (n["attn"] + n["mamba"]) + mlp * n["mlp"] + 1
+    return (4 * (n["attn"] + n["mamba"]) + 6 * n["mlstm"] + 3 * n["slstm"]
+            + mlp * n["mlp"] + (0 if cfg.tie_embeddings else 1))
 
 
 def record_steps(ex):
@@ -1114,6 +1259,7 @@ def main_path(arch, quant, kernels):
     import numpy as np
     from repro_torch.core import chip_hour_price
     from repro_torch.launch.serve import build_engine, real_tier_hw, serve
+    from repro_torch.models import model as model_lib
     from repro_torch.serving import ArrivalSpec
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1132,11 +1278,24 @@ def main_path(arch, quant, kernels):
     steps = record_steps(ex)
     hw = real_tier_hw("cuda")
     price = chip_hour_price(hw)
+    # every call's fp32 logits must be finite (tied random embeddings make
+    # xlstm-350m's and granite-moe's tokens say nothing)
+    unembed, finite = model_lib.unembed, []
+
+    def checked(*args, **kw):
+        out = unembed(*args, **kw)
+        finite.append(torch.isfinite(out).all())
+        return out
+
     for k in kernels.values():
         k.launches = 0
+    model_lib.unembed = checked
     t0 = time.perf_counter()
-    reqs, meter = serve(eng, spec, price_per_hr=price,
-                        log=lambda s: print(s, flush=True))
+    try:
+        reqs, meter = serve(eng, spec, price_per_hr=price,
+                            log=lambda s: print(s, flush=True))
+    finally:
+        model_lib.unembed = unembed
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1162,6 +1321,8 @@ def main_path(arch, quant, kernels):
     if not all(_minus_inf_only_where_idle(p) for p in ex.pools):
         fail(f"{arch} {quant}: non-finite values in the KV pools or the "
              "recurrent states (beyond an idle slot's mLSTM m = -inf)")
+    if not (finite and bool(torch.stack(finite).all())):
+        fail(f"{arch} {quant}: non-finite fp32 logits")
     out = {
         "arch": arch, "quant": quant, "layers": ex.cfg.num_layers,
         "weights_gib": _n_bytes(ex.params) / 2**30,
@@ -1184,6 +1345,180 @@ def main_path(arch, quant, kernels):
           f"{out['usd_per_mtok']:.4f} at {hw}'s ${price}/hr "
           f"({out['usd_per_mtok_at_1usd_hr']:.4f} at $1/hr)", flush=True)
     return out, steps
+
+
+def whisper_path(kernels):
+    """The contiguous-cache phase: whisper-base at full width and depth (6
+    encoder and 6 decoder layers, d_model 512, 8 heads of 64, vocab 51865,
+    tied embeddings; random bf16 weights from seed 0) through
+    `models.prefill` over `WHISPER`'s 8 slots of 1500 stubbed audio frames
+    and a 440-token prompt, then 8 greedy `models.decode_step`s. The
+    kernels' counts are set to 0 before it: flash 18 launches (the
+    encoder's 6, the decoder's 6 causal ones and its 6 cross-attentions),
+    12 of them without a mask, and no other kernel (decode attends in
+    plain PyTorch on the contiguous cache, as the reference). Gates: those
+    counts, finite fp32 logits of the vocabulary's width at every call,
+    the cache length, finite K/V and cross-attention K/V."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config("whisper-base")
+    Bw, Se, S, steps = (WHISPER[k] for k in ("batch", "frames", "prompt",
+                                             "steps"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, device="cuda", generator=gen)
+    frames = torch.randn(Bw, Se, cfg.d_model, generator=gen,
+                         device="cuda").bfloat16()
+    tokens = torch.randint(0, cfg.vocab_size, (Bw, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    print(f"contiguous API whisper-base: {cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{_n_weights(params) / 1e9:.3f} B weights in "
+          f"{_n_bytes(params) / 2**30:.2f} GiB, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    flash = kernels["flash_attention"]
+    for k in kernels.values():
+        k.launches = 0
+    flash.noncausal_launches = 0
+    finite = []
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": tokens,
+                                          "frames": frames},
+                            max_len=S + steps)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    decode_ms = []
+    for _ in range(steps):
+        finite.append(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cfg, tok, cache)
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+    finite.append(torch.isfinite(logits).all())
+    launches = {name: k.launches for name, k in kernels.items()}
+    noncausal = flash.noncausal_launches
+    peak = torch.cuda.max_memory_allocated()
+    L, E = cfg.num_layers, cfg.encoder_layers
+    expect = {"flash_attention": E + 2 * L, "paged_attention": 0,
+              "int8_matmul": 0, "ssm_scan": 0}
+    print(f"contiguous API whisper-base: prefill {prefill_ms:.1f} ms, "
+          f"decode steps {[round(t, 2) for t in decode_ms]} ms, launches "
+          f"{launches} ({noncausal} without a mask), peak memory "
+          f"{peak / 2**30:.2f} GiB allocated", flush=True)
+    if launches != expect or noncausal != E + L:
+        fail(f"whisper-base: launch counts {launches}, {noncausal} without "
+             f"a mask, != {expect}, {E + L}")
+    if logits.shape != (Bw, 1, cfg.vocab_size) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.stack(finite).all()):
+        fail(f"whisper-base: logits {tuple(logits.shape)} {logits.dtype}, "
+             "or non-finite")
+    if not bool((cache["len"] == S + steps).all()) or not all(
+            bool(torch.isfinite(t.float()).all())
+            for c in cache["layers"] for t in c.values()):
+        fail("whisper-base: a wrong cache length or a non-finite cache")
+    return {"arch": "whisper-base", "quant": "bf16",
+            "layers": {"encoder": E, "decoder": L},
+            "weights_gib": _n_bytes(params) / 2**30,
+            "peak_memory_gib": peak / 2**30, "batch": Bw, "frames": Se,
+            "prompt": S, "decode_steps": steps, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "launches": launches,
+            "noncausal_launches": noncausal}
+
+
+def small_whisper(seed=1):
+    """The narrow whisper-base of `small_whisper_check`: (cfg, its
+    parameters on the CPU from `seed`, a batch of 4 slots: a 32-token
+    prompt and all 1500 frames, from seed 0). d_model 512, ff 1024, vocab
+    1024, 2 encoder and 2 decoder layers at its own 8 heads of 64."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import init_params
+    hq, hkv, d = SMALL_HEADS["whisper-base"]
+    cfg = dataclasses.replace(
+        reduced("whisper-base", d_model=512, ff=1024, vocab=1024, layers=2),
+        num_heads=hq, num_kv_heads=hkv, head_dim=d,
+        frontend_len=WHISPER["frames"])
+    params = init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, 1000, (4, 32), generator=g,
+                                     dtype=torch.int32),
+             "frames": torch.randn(4, cfg.frontend_len, cfg.d_model,
+                                   generator=g).bfloat16()}
+    return cfg, params, batch
+
+
+def drive_whisper(cfg, params, batch, devices, before=lambda name: None):
+    """`models.prefill` of `batch` then 8 `models.decode_step`s on each
+    side of `devices` (name -> device), every side fed the greedy tokens
+    of the first; `before(name)` runs before each of a side's calls.
+    Returns name -> (last logits, cache) on the side's device."""
+    from repro_torch.models import decode_step, prefill
+    sides = {}
+    for name, dev in devices.items():
+        p = _tree_map(lambda t: t.to(dev), params)
+        before(name)
+        sides[name] = prefill(p, cfg, {k: v.to(dev) for k, v in
+                                       batch.items()}, max_len=40) + (p,)
+    first = next(iter(devices))
+    for _ in range(8):
+        tok = sides[first][0][:, -1].argmax(-1).to(torch.int32)[:, None]
+        for name, (_, cache, p) in sides.items():
+            before(name)
+            sides[name] = decode_step(p, cfg, tok.to(devices[name]),
+                                      cache) + (p,)
+    return {name: (lg, cache) for name, (lg, cache, _) in sides.items()}
+
+
+# the whisper check's bounds (`scripts/small_check_sensitivity.py --arch
+# whisper-base`; H100 80GB HBM3, 700 W; PERF.md): the farthest sound
+# reading (the card at weight seeds 1-8, the CPU with every `linear` and
+# attention 0.1% or 1% nudged) against the nearest planted fault (flash
+# without the last frame tile; decode without the cross-attention). The
+# means sit at the geometric mean of the two: K/V 0.0019 / 0.0042, xk/xv
+# 0.00060 / 0.00121. The largest K/V difference (0.0156 / 0.0342) and the
+# logits (0.0090 / 0.204) keep the tighter bounds of the other bf16
+# checks. The largest xk/xv difference is read, not held: one bf16 step
+# (0.0156) both when sound and under the frame-tile fault.
+WHISPER_BOUNDS = {"K/V": 0.02, "K/V mean": 0.0028, "xk/xv mean": 0.00085,
+                  "logits": 0.029}
+
+
+def whisper_readings(a, b):
+    """(readings, passes `WHISPER_BOUNDS`) of two sides of `drive_whisper`:
+    the largest and the mean difference of the self-attention K/V and of
+    the cross-attention's xk/xv (the largest over the layers), and the
+    largest difference of the last fp32 logits over their largest
+    magnitude (the tied random embeddings make tokens say nothing)."""
+    (la, ca), (lb, cb) = a, b
+    d = {n: [(x[n].float().cpu() - y[n].float().cpu()).abs()
+             for x, y in zip(ca["layers"], cb["layers"])]
+         for n in ("k", "v", "xk", "xv")}
+    diff = {n: max(float(t.max()) for t in ts) for n, ts in d.items()}
+    mean = {n: max(float(t.mean()) for t in ts) for n, ts in d.items()}
+    la, lb = la.float().cpu(), lb.float().cpu()
+    logits = float((la - lb).abs().max() / la.abs().max())
+    readings = {"max diff": diff, "mean diff": mean,
+                "last logits' max diff over their largest": logits}
+    ok = (max(diff["k"], diff["v"]) <= WHISPER_BOUNDS["K/V"]
+          and max(mean["k"], mean["v"]) <= WHISPER_BOUNDS["K/V mean"]
+          and max(mean["xk"], mean["xv"]) <= WHISPER_BOUNDS["xk/xv mean"]
+          and logits <= WHISPER_BOUNDS["logits"])
+    return readings, ok
+
+
+def small_whisper_check():
+    """`small_whisper` through `drive_whisper` on the card (flash) and on
+    the CPU (the plain versions), on the same weights (seed 1), frames
+    and tokens, both sides fed the CPU's tokens; held to
+    `WHISPER_BOUNDS` by `whisper_readings`."""
+    cfg, params, batch = small_whisper()
+    sides = drive_whisper(cfg, params, batch, {"cpu": "cpu",
+                                               "cuda": "cuda"})
+    return whisper_readings(sides["cpu"], sides["cuda"])
 
 
 def sim_against_real(real, steps):
@@ -1876,7 +2211,8 @@ def main():
     }
     variants = {
         "paged_attention": [check_paged(gen, a) for a in ATTN_ARCHS],
-        "flash_attention": [check_flash(gen, a) for a in ATTN_ARCHS],
+        "flash_attention": [check_flash(gen, a) for a in ATTN_ARCHS]
+        + check_flash_bidirectional(gen),
         "int8_matmul": check_int8(gen),
         "ssm_scan": check_ssm(gen),
     }
@@ -1929,6 +2265,11 @@ def main():
               flush=True)
         if not ok:
             failed.append(f"{arch} {quant}: {readings}")
+    readings, ok = small_whisper_check()
+    print(f"small-input check whisper-base bf16 (prefill, decode_step): "
+          f"{'pass' if ok else 'FAIL'} {json.dumps(readings)}", flush=True)
+    if not ok:
+        failed.append(f"whisper-base bf16: {readings}")
 
     # 5. main paths, one engine on the card at a time
     kernels = {"paged_attention": paged_attention_kernel,
@@ -1943,6 +2284,10 @@ def main():
         steps.append(log)
         gc.collect()
         torch.cuda.empty_cache()
+    phase("contiguous API whisper-base")
+    contiguous = whisper_path(kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 6. the sim tier on the card's entry, beside the real tier's readings
     phase("sim tier")
@@ -1965,6 +2310,7 @@ def main():
     print(f"live validation: {time.perf_counter() - t0:.1f} s", flush=True)
     phase("done")
     print(json.dumps({"main_paths": paths}))
+    print(json.dumps({"contiguous_api": contiguous}))
     print(json.dumps({"sim_tier": {"against_real": sims,
                                    "matrix": matrix}}))
     print(json.dumps({"fleet": fleet}))
@@ -1977,8 +2323,15 @@ def main():
         by_path = {f"{p['arch']} {p['quant']}": p["launches"][name]
                    for p in paths}
         by_path["live validation llama31-8b bf16"] = live["launches"][name]
+        by_path["whisper-base bf16 contiguous"] = \
+            contiguous["launches"][name]
         for v in vs:        # an attention instantiation's own launches
-            if "instantiation" in v:
+            if v.get("instantiation", {}).get("path") == "whisper-base":
+                noncausal = contiguous["noncausal_launches"]
+                v["launches"] = (noncausal if not v["instantiation"]["causal"]
+                                 else contiguous["launches"][name]
+                                 - noncausal)
+            elif "instantiation" in v:
                 v["launches"] = sum(
                     p["launches"][name] for p in paths
                     if instantiation(p["arch"]) == v["instantiation"]) + (
@@ -2048,7 +2401,8 @@ def _n_weights(tree) -> int:
 
 def _n_bytes(tree) -> int:
     """Bytes of every tensor of a tree (scales included), each storage
-    counted once: a K-major weight holds exactly its matrix's bytes."""
+    counted once: a K-major weight holds its matrix's bytes, its rows
+    padded to a multiple of 16 where K is not one."""
     seen = {}
 
     def visit(t):

@@ -8,13 +8,17 @@ made by editing its source (decode without split-K, with the split rule
 looser, or with 6 stages instead of 4; prefill with one tile a block
 instead of a persistent grid, always on 128 x 128 tiles, or with 3
 stages instead of 4) into `build/int8_variants/`, and `--baseline`, an
-earlier `int8_matmul.cu` with the same C entry point that reads the
-weight row-major (for example the parent commit's, from `git show`).
-Prints ptxas's register and spill lines for each. Then, at every shape of
-`chip_smoke.INT8_SHAPES`, holds each build to the plain version bit for
-bit and times it (`chip_smoke.device_ms`: CUDA graphs of repeated calls
-over enough weight sets to overflow L2) in turns: every build, then the
-same in reverse.
+earlier `int8_matmul.cu` that reads the weight K-major, with either this
+entry point or the one before it, which took no row strides (`(x, w,
+x_scale, w_scale, out, M, N, K, stream)`: K a multiple of 16 and N of 8;
+for example the parent commit's, from `git show`). Prints ptxas's
+register and spill lines for each. Then, at every shape of
+`chip_smoke.INT8_SHAPES` (a build without row strides skips those whose K
+or N it refuses), holds each build to the plain version bit for bit and
+times it (`chip_smoke.device_ms`: CUDA graphs of repeated calls over
+enough weight sets to overflow L2) in turns: every build, then the same
+in reverse. The operands are stored as the model stores them: rows
+padded to a multiple of 16 bytes where K is not one.
 Prints one JSON object, with every number, as its last line.
 """
 from __future__ import annotations
@@ -50,16 +54,17 @@ EDITS = {
 
 
 def sources(baseline):
-    """{name: (source, reads the weight row-major)}."""
+    """{name: (source, its entry point takes row strides)}."""
     from repro_torch.kernels import build
     src = (build.CSRC / "int8_matmul.cu").read_text()
-    out = {"as is": (src, False)}
+    out = {"as is": (src, True)}
     for name, (old, new) in EDITS.items():
         assert old in src, f"the kernel's source moved: {old!r}"
-        out[name] = (src.replace(old, new), False)
+        out[name] = (src.replace(old, new), True)
     if baseline:
         with open(baseline) as f:
-            out["baseline"] = (f.read(), True)
+            base = f.read()
+        out["baseline"] = (base, "int ldx" in base)
     return out
 
 
@@ -79,6 +84,7 @@ def build_all(srcs):
             text=True), so)
     libs, ptxas = {}, {}
     for name, (proc, so) in procs.items():
+        strided = srcs[name][1]
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
@@ -87,21 +93,27 @@ def build_all(srcs):
         lib = ctypes.CDLL(so)
         lib.int8_matmul_s8.restype = ctypes.c_int
         lib.int8_matmul_s8.argtypes = [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_int] * (6 if strided else 3) + [ctypes.c_void_p]
         libs[name] = lib
     return libs, ptxas
 
 
-def caller(lib, row_major):
-    """fn(x, w_k_major, w_row_major, xs, ws) -> out through `lib`."""
-    def fn(x, wk, wr, xs, ws):
+def caller(lib, strided):
+    """fn(x, w, xs, ws) -> out through `lib`; `strided`: its entry point
+    takes the row strides of x, w and out."""
+    from repro_torch.kernels.int8_matmul.kernel import padded
+
+    def fn(x, w, xs, ws):
         M, K = x.shape
-        N = wk.shape[1]
-        out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-        w = wr if row_major else wk
+        N = w.shape[1]
+        ldo = padded(N, 4) if strided else N
+        out = torch.empty((M, ldo), dtype=torch.float32,
+                          device=x.device)[:, :N]
+        lds = (x.stride(0), w.stride(1), ldo) if strided else ()
         err = lib.int8_matmul_s8(
             x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), M, N, K, *lds,
+            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"CUDA error {err}")
         return out
@@ -111,33 +123,37 @@ def caller(lib, row_major):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", help="an earlier int8_matmul.cu that "
-                    "reads the weight row-major")
+                    "reads the weight K-major")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("int8_variants: no CUDA device; this script runs on the card")
+    from repro_torch.kernels.int8_matmul.kernel import padded
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
     srcs = sources(args.baseline)
     libs, ptxas = build_all(srcs)
     for name, lines in ptxas.items():
         for line in lines:
             print(f"ptxas {name}: {line}")
-    fns = {name: caller(libs[name], srcs[name][1]) for name in libs}
+    every = {name: caller(libs[name], srcs[name][1]) for name in libs}
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for M, K, N, what in chip_smoke.INT8_SHAPES:
         n_sets = max(2, min(6, -(-120_000_000 // (K * N))))
+        ld = padded(K, 16)
         sets = []
         for _ in range(n_sets):
-            wk = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
-                               dtype=torch.int8).mT
             sets.append((
-                torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
-                              dtype=torch.int8),
-                wk, wk.contiguous() if args.baseline else wk,
+                torch.randint(-127, 128, (M, ld), generator=gen,
+                              device="cuda", dtype=torch.int8)[:, :K],
+                torch.randint(-127, 128, (N, ld), generator=gen,
+                              device="cuda", dtype=torch.int8)[:, :K].mT,
                 torch.rand(1, generator=gen, device="cuda") * 0.02 + 1e-3,
                 torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 1e-3))
-        x, wk, _, xs, ws = sets[0]
+        x, wk, xs, ws = sets[0]
         ref = int8_matmul_ref(x, wk, xs, ws)
+        # an entry point without row strides takes K % 16 == N % 8 == 0
+        fns = {name: fn for name, fn in every.items()
+               if srcs[name][1] or not (K % 16 or N % 8)}
         exact = {}
         for name, fn in fns.items():
             out = fn(*sets[0])

@@ -5,7 +5,7 @@ small-input readings: the yardstick for their bounds.
         [--arch mixtral-8x7b --quant int8 | --arch xlstm-350m --quant bf16
          | --arch jamba-v0.1-52b --quant int8
          | --arch granite-moe-1b-a400m --quant bf16
-         | --arch granite-34b --quant int8]
+         | --arch granite-34b --quant int8 | --arch whisper-base]
         [--card | --perturbed-device cuda]
 
 Runs `chip_smoke.small_model` twice through `chip_smoke.drive_small`: a
@@ -22,6 +22,12 @@ card-vs-CPU check prints, and whether they pass its bounds). Perturbations:
   * faults: decode without each context's last page (attention models),
     decode with the carried Mamba h or conv state dropped (Mamba), or
     decode with the carried mLSTM or sLSTM state dropped (xLSTM).
+whisper-base runs `chip_smoke.small_whisper_check`'s pair instead
+(`chip_smoke.drive_whisper`, `chip_smoke.whisper_readings`): on the CPU
+every `linear` and attention result nudged; with `--perturbed-device
+cuda` the card against the CPU at weight seeds 1-8; and on either, its
+faults: decode without the cross-attention, and flash without a mask
+dropping the last frame tile.
 Imports no JAX; needs a card only for `--card` and `--perturbed-device`.
 """
 from __future__ import annotations
@@ -156,6 +162,83 @@ def perturbations(arch, cfg):
             lambda f: lambda q, kp, vp, bt, lens: f(
                 q, kp, vp, bt, torch.where(lens > page, lens - page, lens)))]
     return {name: p for name, p in out.items() if p}
+
+
+def whisper_perturbations(device):
+    """name -> [(module, attribute, wrapper factory)] for whisper-base's
+    check (`chip_smoke.small_whisper_check`): nudges of every `linear`
+    and attention result (on the CPU only: on the card its own rounding
+    is the perturbation, read over weight seeds in `run_whisper`), and
+    two faults: decode without the cross-attention, and the encoder's
+    and the cross-attention's flash without the last frame tile (1500
+    frames run as 1472)."""
+    from repro_torch.models import attention, layers, model
+    gen = lambda seed=5: torch.Generator().manual_seed(seed)  # noqa: E731
+    out = {}
+    if device == "cpu":
+        for share in SHARES:
+            g = gen()
+            out[f"every linear and attention, {share:.1%} nudged"] = [
+                (mod, attr, lambda f, s=share, g=g: _nudged(f, s, g))
+                for mod, attr in ((model, "linear"), (attention, "linear"),
+                                  (layers, "linear"),
+                                  (model, "flash_attention"),
+                                  (attention, "decode_attention"),
+                                  (attention, "bidirectional_attention"))]
+    out["decode skips the cross-attention"] = [(
+        attention, "cross_attention",
+        lambda f: lambda p, x, *a, **k: (
+            torch.zeros_like(x) if x.shape[1] == 1 else f(p, x, *a, **k)))]
+    last = (1500 - 1) // 64 * 64
+    out[f"flash without a mask drops the last frame tile (1500 run as "
+        f"{last})"] = [(
+            model, "_bidirectional_flash",
+            lambda f: lambda q, k, v: f(q, k[:, :last].contiguous(),
+                                        v[:, :last].contiguous()))]
+    return out
+
+
+def run_whisper(device="cpu", seeds=range(1, 9), names=None):
+    """Yield (reading, passes the bounds, readings) for whisper-base: on
+    the card, the sound side at each weight seed of `seeds`, then each
+    fault on the card; on the CPU each perturbation of
+    `whisper_perturbations` (or each of `names`), all against a clean CPU
+    side."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import chip_smoke
+    from repro_torch.serving import runner
+    runner.set_matmul_precision()
+    if device != "cpu":
+        for seed in seeds:
+            cfg, params, batch = chip_smoke.small_whisper(seed)
+            sides = chip_smoke.drive_whisper(
+                cfg, params, batch, {"clean": "cpu", "perturbed": device})
+            readings, ok = chip_smoke.whisper_readings(sides["clean"],
+                                                       sides["perturbed"])
+            yield f"the card, weight seed {seed}", ok, readings
+    cfg, params, batch = chip_smoke.small_whisper()
+    for name, patches in whisper_perturbations(device).items():
+        if names is not None and name not in names:
+            continue
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+        patched = [wrap(f) for (_, _, wrap), (_, _, f) in zip(patches,
+                                                               saved)]
+
+        def before(side):
+            for (mod, attr, f), g in zip(saved, patched):
+                setattr(mod, attr, g if side == "perturbed" else f)
+
+        try:
+            sides = chip_smoke.drive_whisper(
+                cfg, params, batch, {"clean": "cpu", "perturbed": device},
+                before)
+        finally:
+            for mod, attr, f in saved:
+                setattr(mod, attr, f)
+        readings, ok = chip_smoke.whisper_readings(sides["clean"],
+                                                   sides["perturbed"])
+        yield name, ok, readings
 
 
 def run(arch: str, quant: str, names=None, device="cpu"):
@@ -391,6 +474,11 @@ def main(argv=None):
                               card_breakdown(args.arch, args.quant)):
             print(f"{args.arch} {args.quant}, {name}: {json.dumps(part)}",
                   flush=True)
+        return
+    if args.arch == "whisper-base":     # bf16, on the contiguous cache
+        for name, ok, readings in run_whisper(args.perturbed_device):
+            print(f"whisper-base bf16, {name}: passes the card's bounds: "
+                  f"{ok}; {json.dumps(readings)}", flush=True)
         return
     for name, ok, readings in run(args.arch, args.quant,
                                   device=args.perturbed_device):

@@ -6,9 +6,12 @@ MoE qwen3-30b-a3b and the sparse MoE mixtral-8x7b; the hybrid Mamba +
 attention + MoE jamba-v0.1-52b; xlstm-350m, of mLSTM and sLSTM blocks
 with tied embeddings; the dense phi3-medium-14b, codeqwen1.5-7b (full
 multi-head attention), nemotron-4-15b (squared-ReLU MLP, layernorm) and
-granite-34b (multi-query attention, 88 layers); and the MoE
-granite-moe-1b-a400m (head_dim 64, 32 experts, tied embeddings). The
-others arrive with the slices that serve them.
+granite-34b (multi-query attention, 88 layers); the MoE
+granite-moe-1b-a400m (head_dim 64, 32 experts, tied embeddings); the
+encoder-decoder whisper-base (learned positions, stubbed audio frames,
+tied embeddings); and the VLM qwen2-vl-7b (M-RoPE, stubbed vision
+patches). llama4-maverick, which one card does not hold, arrives with the
+slice that shards it.
 
 `reduced(name)` returns a tiny same-family config for CPU tests.
 """
@@ -32,12 +35,12 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs import (  # noqa: E402
     codeqwen1_5_7b, granite_34b, granite_moe_1b_a400m, jamba_v0_1_52b,
-    llama31_8b, mixtral_8x7b, nemotron_4_15b, phi3_medium_14b, qwen3_30b_a3b,
-    xlstm_350m)
+    llama31_8b, mixtral_8x7b, nemotron_4_15b, phi3_medium_14b, qwen2_vl_7b,
+    qwen3_30b_a3b, whisper_base, xlstm_350m)
 
 _MODULES = (llama31_8b, qwen3_30b_a3b, jamba_v0_1_52b, mixtral_8x7b,
             xlstm_350m, phi3_medium_14b, codeqwen1_5_7b, nemotron_4_15b,
-            granite_34b, granite_moe_1b_a400m)
+            granite_34b, granite_moe_1b_a400m, whisper_base, qwen2_vl_7b)
 
 _REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

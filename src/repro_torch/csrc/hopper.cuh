@@ -41,24 +41,27 @@ inline EncodeTiled encode_tiled() {
 // A tensor map over a row-major (outer, rows, inner) array of bf16
 // (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16), fp32 (..._FLOAT32) or int8
 // (..._UINT8: TMA moves bytes, their sign is the reader's) at `base`
-// (16-byte aligned, rows 16-byte multiples), read and written in boxes of
-// box_rows x box_inner elements (one outer index) under the 128-byte
-// swizzle that wgmma's B128 layout reads (a box row at most 128 bytes: 64
-// bf16, 32 fp32 or 128 int8). Rows and elements past the array's edge
-// read as zeros and are never written. Built on the host for every launch
-// and passed by value (a __grid_constant__ parameter), so a CUDA graph
-// replays it with the addresses it was captured with.
+// (16-byte aligned), read and written in boxes of box_rows x box_inner
+// elements (one outer index) under the 128-byte swizzle that wgmma's B128
+// layout reads (a box row at most 128 bytes: 64 bf16, 32 fp32 or 128
+// int8). Rows lie `ld` elements apart (`inner` when ld is 0; ld * elem a
+// multiple of 16 bytes), so the array may be the first `inner` columns of
+// a wider one. Rows and elements past the array's edge (past `inner`, not
+// `ld`) read as zeros and are never written. Built on the host for every
+// launch and passed by value (a __grid_constant__ parameter), so a CUDA
+// graph replays it with the addresses it was captured with.
 inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
                              const void* base, uint64_t inner, uint64_t rows,
                              uint64_t outer, uint32_t box_inner,
-                             uint32_t box_rows) {
+                             uint32_t box_rows, uint64_t ld = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const uint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32    ? 4
                         : type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
                                                                    : 1;
+  if (ld == 0) ld = inner;
   const cuuint64_t dims[3] = {inner, rows, outer};
-  const cuuint64_t strides[2] = {inner * elem, inner * rows * elem};
+  const cuuint64_t strides[2] = {ld * elem, ld * rows * elem};
   const cuuint32_t box[3] = {box_inner, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(

@@ -6,11 +6,16 @@
 // of x_q[m, k] * w_q[k, n]; the product of the two scales is taken first,
 // and the one conversion and the one multiply happen once, in the
 // epilogue, so the result equals its plain version bit for bit whatever
-// the order of the sums. x_q is (M, K) row-major; w_q is the reference's
-// (K, N) weight stored K-major, i.e. the rows of a contiguous (N, K) array
-// `wt` with w_q[k, n] = wt[n, k]; out is (M, N) fp32. K must be a multiple
-// of 16 (TMA's row stride) and N of 8; any M. Rows past M or N and K past
-// the last tile are read as zeros by TMA and never stored.
+// the order of the sums. x_q is (M, K) with rows ldx bytes apart; w_q is
+// the reference's (K, N) weight stored K-major, i.e. the first K columns of
+// a row-major (N, ldw) array `wt` with w_q[k, n] = wt[n, k]; out is (M, N)
+// fp32 with rows ldo floats apart. Any M, K and N: TMA needs only the row
+// strides to be multiples of 16 bytes (ldx and ldw of 16, ldo of 4), so a
+// ragged K or N (xlstm-350m's sLSTM projections, K or N 1365) lives in
+// rows padded to those multiples, and the tensor maps describe the true K
+// and N: TMA reads every element past K, and every row past M or N, as
+// zero (a zero code adds zero to the int32 sum), and no row or column
+// past M or N is stored.
 //
 // What bounds it on this card: at the decode shapes (M <= 64) the K x N
 // weight's bytes, read once: 2 M operations per weight byte against the
@@ -169,9 +174,14 @@ __device__ __forceinline__ void prefill_consume(
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int j = 4 * c + jj;
-        const int n = o.y + 8 * j + 2 * (lane % 4);   // N even: n + 1 too
-        const float s0 = n < sh.N ? __fmul_rn(xs, w_scale[n]) : 0.f;
-        const float s1 = n < sh.N ? __fmul_rn(xs, w_scale[n + 1]) : 0.f;
+        // an odd N's last column pair reads w_scale[N - 1] twice (column N
+        // is clipped by the TMA store): a clamped index, not a second
+        // predicate, which slowed the prefill epilogue (`PERF.md`)
+        const int n = o.y + 8 * j + 2 * (lane % 4);
+        const bool in = n < sh.N;
+        const float s0 = in ? __fmul_rn(xs, w_scale[n]) : 0.f;
+        const float s1 = in ? __fmul_rn(xs, w_scale[min(n + 1, sh.N - 1)])
+                            : 0.f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int rr = r + 8 * h;
@@ -261,7 +271,7 @@ struct Decode {
 };
 
 struct DecodeShape {
-  int M, N, nkt, per_split;            // k-tiles in all, and per split
+  int M, N, ldo, nkt, per_split;       // k-tiles in all, and per split
 };
 
 template <int MN>
@@ -377,7 +387,7 @@ int8_matmul_decode_kernel(const __grid_constant__ CUtensorMap map_x,
     for (int e = 0; e < 4; ++e) {
       const int m = 8 * j + 2 * (lane % 4) + e % 2, n = n_lo + 8 * (e / 2);
       if (m < sh.M && n < sh.N)
-        out[(size_t)m * sh.N + n] =
+        out[(size_t)m * sh.ldo + n] =
             __fmul_rn(__int2float_rn(acc[4 * j + e]), sc[e / 2]);
     }
   }
@@ -397,17 +407,17 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
 template <int BN>
 cudaError_t launch_prefill(const void* x, const void* w, const float* xs,
                            const float* ws, float* out, int M, int N, int K,
-                           cudaStream_t st) {
+                           int ldx, int ldw, int ldo, cudaStream_t st) {
   static bool configured = false;
   cudaError_t e = allow_smem(int8_matmul_prefill_kernel<BN>,
                              Prefill<BN>::SMEM, configured);
   if (e) return e;
   CUtensorMap mx, mw, mo;
   constexpr CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  if ((e = hopper::tiled_map(&mx, s8, x, K, M, 1, BK, P_BM)) ||
-      (e = hopper::tiled_map(&mw, s8, w, K, N, 1, BK, BN)) ||
+  if ((e = hopper::tiled_map(&mx, s8, x, K, M, 1, BK, P_BM, ldx)) ||
+      (e = hopper::tiled_map(&mw, s8, w, K, N, 1, BK, BN, ldw)) ||
       (e = hopper::tiled_map(&mo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, N, M,
-                             1, 32, 64)))
+                             1, 32, 64, ldo)))
     return e;
   const int tiles_m = (M + P_BM - 1) / P_BM;
   const Shape sh{M, N, (K + BK - 1) / BK, tiles_m,
@@ -422,22 +432,22 @@ cudaError_t launch_prefill(const void* x, const void* w, const float* xs,
 template <int MN>
 cudaError_t launch_decode(const void* x, const void* w, const float* xs,
                           const float* ws, float* out, int M, int N, int K,
-                          cudaStream_t st) {
+                          int ldx, int ldw, int ldo, cudaStream_t st) {
   static bool configured = false;
   cudaError_t e = allow_smem(int8_matmul_decode_kernel<MN>,
                              Decode<MN>::SMEM, configured);
   if (e) return e;
   CUtensorMap mx, mw;
   constexpr CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  if ((e = hopper::tiled_map(&mx, s8, x, K, M, 1, BK, MN)) ||
-      (e = hopper::tiled_map(&mw, s8, w, K, N, 1, BK, D_BN)))
+  if ((e = hopper::tiled_map(&mx, s8, x, K, M, 1, BK, MN, ldx)) ||
+      (e = hopper::tiled_map(&mw, s8, w, K, N, 1, BK, D_BN, ldw)))
     return e;
   const int tiles = (N + D_BN - 1) / D_BN, nkt = (K + BK - 1) / BK;
   int split = 1;
   while (split < MAX_SPLIT && tiles * split < SPLIT_FILL * SM_COUNT &&
          nkt >= 2 * split * SPLIT_MIN_KT)
     split *= 2;
-  const DecodeShape sh{M, N, nkt, (nkt + split - 1) / split};
+  const DecodeShape sh{M, N, ldo, nkt, (nkt + split - 1) / split};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles, split, 1);
   cfg.blockDim = dim3(D_THREADS, 1, 1);
@@ -457,13 +467,16 @@ cudaError_t launch_decode(const void* x, const void* w, const float* xs,
 
 }  // namespace
 
-// x (M, K) row-major; w the (K, N) weight stored K-major, as the rows of a
-// contiguous (N, K) array; out (M, N) fp32; all 16-byte aligned (TMA). The path is chosen
-// by M alone: M <= 64 decode, else prefill.
+// x (M, K), rows ldx bytes apart; w the (K, N) weight stored K-major, as
+// the first K columns of a row-major (N, ldw) array; out (M, N) fp32, rows
+// ldo floats apart; all 16-byte aligned, ldx and ldw multiples of 16 and ldo
+// of 4 (TMA). The path is chosen by M alone: M <= 64 decode, else prefill.
 extern "C" int int8_matmul_s8(const void* x, const void* w,
                               const void* x_scale, const void* w_scale,
-                              void* out, int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 8)
+                              void* out, int M, int N, int K, int ldx,
+                              int ldw, int ldo, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || ldx < K || ldw < K || ldo < N ||
+      ldx % 16 || ldw % 16 || ldo % 4)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16 ||
@@ -473,15 +486,21 @@ extern "C" int int8_matmul_s8(const void* x, const void* w,
   const float* xs = static_cast<const float*>(x_scale);
   const float* ws = static_cast<const float*>(w_scale);
   float* o = static_cast<float*>(out);
-  if (M <= 8) return launch_decode<8>(x, w, xs, ws, o, M, N, K, s);
-  if (M <= 16) return launch_decode<16>(x, w, xs, ws, o, M, N, K, s);
-  if (M <= 32) return launch_decode<32>(x, w, xs, ws, o, M, N, K, s);
-  if (M <= 64) return launch_decode<64>(x, w, xs, ws, o, M, N, K, s);
+  if (M <= 8) return launch_decode<8>(x, w, xs, ws, o, M, N, K, ldx, ldw,
+                                      ldo, s);
+  if (M <= 16) return launch_decode<16>(x, w, xs, ws, o, M, N, K, ldx, ldw,
+                                        ldo, s);
+  if (M <= 32) return launch_decode<32>(x, w, xs, ws, o, M, N, K, ldx, ldw,
+                                        ldo, s);
+  if (M <= 64) return launch_decode<64>(x, w, xs, ws, o, M, N, K, ldx, ldw,
+                                        ldo, s);
   // 128 x 256 tiles where they fill the card, else 128 x 128
   const long tiles256 = (long)((M + P_BM - 1) / P_BM) * ((N + 255) / 256);
   return tiles256 >= SM_COUNT
-             ? launch_prefill<256>(x, w, xs, ws, o, M, N, K, s)
-             : launch_prefill<128>(x, w, xs, ws, o, M, N, K, s);
+             ? launch_prefill<256>(x, w, xs, ws, o, M, N, K, ldx, ldw,
+                                   ldo, s)
+             : launch_prefill<128>(x, w, xs, ws, o, M, N, K, ldx, ldw,
+                                   ldo, s);
 }
 
 extern "C" const char* kernel_error_string(int err) {

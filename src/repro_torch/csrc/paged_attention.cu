@@ -15,8 +15,8 @@
 // What bounds it on this card: device-memory bytes. Every valid position's
 // K and V row (2 * D * 2 bytes per KV head) is read once and used for G
 // dot products and G multiply-adds per element, 4 * G * D FLOPs on
-// 4 * D bytes: G (1 for codeqwen1.5-7b, 4 for llama31-8b, 8 for
-// qwen3-30b-a3b, 48 for granite-34b) FLOPs per byte, far under the ~295
+// 4 * D bytes: G (1 for codeqwen1.5-7b, 4 for llama31-8b, 7 for
+// qwen2-vl-7b, 8 for qwen3-30b-a3b, 48 for granite-34b) FLOPs per byte, far under the ~295
 // FLOP/byte where the tensor cores would bound.
 // At the served shapes a call moves 10-25 MB, 3-7 microseconds at 3.35
 // TB/s, so what decides its time is how many bytes each SM keeps in
@@ -394,7 +394,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 // Instantiated for what the registered configs use, as (head_dim D,
 // query heads per KV head G): (128, 4) llama31-8b, jamba-v0.1-52b,
 // mixtral-8x7b and phi3-medium-14b; (128, 8) qwen3-30b-a3b; (128, 1)
-// codeqwen1.5-7b; (128, 6) nemotron-4-15b; (128, 48) granite-34b, as 6
+// codeqwen1.5-7b; (128, 6) nemotron-4-15b; (128, 7) qwen2-vl-7b (its
+// eighth mma column zero, as G 6's last two); (128, 48) granite-34b, as 6
 // sub-groups of 8; (64, 2) granite-moe-1b-a400m. A config that needs
 // another (D, G) adds its instantiation here and in the wrapper's list.
 // q, the pools and out 16-byte aligned (the rows are read 16 bytes at a
@@ -421,6 +422,7 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
   PAGED_CASE(128, 8, 1)
   PAGED_CASE(128, 1, 1)
   PAGED_CASE(128, 6, 1)
+  PAGED_CASE(128, 7, 1)
   PAGED_CASE(128, 8, 6)
   PAGED_CASE(64, 2, 1)
 #undef PAGED_CASE

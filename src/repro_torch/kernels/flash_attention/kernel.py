@@ -7,7 +7,8 @@ surround it. Its tiles arrive by TMA, which needs 16-byte aligned base
 addresses: the wrapper raises on a tensor that is not, and never copies
 it to fix that. This wrapper checks its inputs, allocates the output,
 launches on PyTorch's current stream and counts its launches in
-`flash_attention_kernel.launches`.
+`flash_attention_kernel.launches`, and those with `causal=False` also in
+`flash_attention_kernel.noncausal_launches`.
 """
 from __future__ import annotations
 
@@ -72,7 +73,12 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
             B, Sq, Sk, Hq, Hkv, D, int(causal), stream)
     build.check(lib, err, "flash_attention_kernel")
     flash_attention_kernel.launches += 1
+    if not causal:
+        flash_attention_kernel.noncausal_launches += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+# of them, launches without a mask (`causal=False`: whisper-base's encoder
+# and cross-attention)
+flash_attention_kernel.noncausal_launches = 0

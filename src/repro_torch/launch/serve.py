@@ -13,12 +13,16 @@ emulates it) or fp8_native (the same arithmetic: the reference has no
 native fp8 GEMM). `--device cpu` runs `reduced(arch, vocab=1024)` with
 the kernels' plain versions instead. Every arch of `configs` is served by
 name: llama31-8b, qwen3-30b-a3b, jamba-v0.1-52b, mixtral-8x7b,
-xlstm-350m, phi3-medium-14b, codeqwen1.5-7b, nemotron-4-15b, granite-34b
-and granite-moe-1b-a400m; on the card `check_card` refuses what one card
-cannot serve (weights larger than its memory, such as mixtral-8x7b or
-jamba-v0.1-52b in bf16, and xLSTM in int8). It prices at the hardware it
-runs on: `cpu-node` on the CPU, and on the card the book entry of its
-name (`CARD_HW`; a card without one raises).
+xlstm-350m, phi3-medium-14b, codeqwen1.5-7b, nemotron-4-15b, granite-34b,
+granite-moe-1b-a400m and qwen2-vl-7b (text only, M-RoPE over equal
+positions, as the reference serves it); whisper-base, an
+encoder-decoder, has no server, as in the reference (its path is
+`models.prefill` and `models.decode_step`). On the card `check_card`
+refuses what one card cannot serve (weights larger than its memory, such
+as mixtral-8x7b or jamba-v0.1-52b in bf16), and the card's peak
+allocated memory is printed at the end. It prices at the hardware it runs
+on: `cpu-node` on the CPU, and on the card the book entry of its name
+(`CARD_HW`; a card without one raises).
 
 sim tier: the full configuration on the calibrated step-time model of
 `--hw` (default `h100-sxm`) over `--chips` chips, priced at that entry's
@@ -39,7 +43,6 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import CostMeter, chip_hour_price
-from repro_torch.kernels.int8_matmul.kernel import K_MULTIPLE, N_MULTIPLE
 from repro_torch.models import init_params
 from repro_torch.models.model import unit_size
 from repro_torch.quant import BY_NAME
@@ -84,43 +87,14 @@ def real_tier_hw(device) -> str:
 def check_card(cfg, quant: str, card_bytes: int):
     """Raise NotImplementedError for a model that one card of `card_bytes`
     cannot serve: weights larger than its memory (they wait for a sharded
-    `parallel/`), and, in int8, an int8 matrix whose shape the int8
-    kernel does not take (`K_MULTIPLE`, `N_MULTIPLE` of its wrapper), such
-    as xlstm-350m's sLSTM down projection, K = int(4/3 d) = 1365. The
-    shapes are read from the model drawn on the meta device, which holds
-    no memory."""
+    `parallel/`). Every shape is taken: the int8 kernel takes any K and N
+    (xlstm-350m's sLSTM projections, K or N 1365, among them)."""
     need = cfg.param_count() * BY_NAME[quant].weight_bytes
     if need > card_bytes:
         raise NotImplementedError(
             f"{cfg.name} in {quant}: {need / 1e9:.1f} GB of weights do not "
             f"fit one card of {card_bytes / 1e9:.1f} GB; sharding across "
             "cards is not ported yet")
-    if quant != "int8":
-        return
-    meta = init_params(cfg, device="meta", generator=torch.Generator(),
-                       quant=quant)
-    refused = sorted({f"{name} (K {K}, N {N})"
-                      for name, (K, N) in _int8_matrices(meta)
-                      if K % K_MULTIPLE or N % N_MULTIPLE})
-    if refused:
-        raise NotImplementedError(
-            f"{cfg.name} in int8: the int8 kernel takes K a multiple of "
-            f"{K_MULTIPLE} and N of {N_MULTIPLE}, not "
-            + ", ".join(refused))
-
-
-def _int8_matrices(p, name=""):
-    """(name, (K, N)) of every 2-D int8 weight in a parameter tree."""
-    if isinstance(p, dict):
-        if isinstance(p.get("q"), torch.Tensor):
-            if p["q"].dtype == torch.int8 and p["q"].ndim == 2:
-                yield name, tuple(p["q"].shape)
-            return
-        for k, v in p.items():
-            yield from _int8_matrices(v, k)
-    elif isinstance(p, (list, tuple)):
-        for v in p:
-            yield from _int8_matrices(v, name)
 
 
 def cut_depth(cfg, layers: int):
@@ -237,6 +211,8 @@ def main(argv=None):
     else:
         device = resolve_device(args.device)
         scale = 0.05 if device.type == "cpu" else 1.0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         eng = build_engine(args.arch, device=device, seed=args.seed,
                            quant=args.quant)
         price = chip_hour_price(real_tier_hw(device))
@@ -245,6 +221,10 @@ def main(argv=None):
     spec = ArrivalSpec(lam=args.lam, n_requests=args.requests,
                        io_shape=args.io_shape, scale=scale, seed=args.seed)
     _, meter = serve(eng, spec, price_per_hr=price)
+    if args.tier == "real" and device.type == "cuda":
+        print(f"peak memory: "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+              f"allocated on {torch.cuda.get_device_name(device)}")
     if args.compare_tier:
         print(meter.compare_api(
             args.compare_tier,

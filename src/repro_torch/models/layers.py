@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, MLPs, softcap, initialisers.
+"""Shared building blocks: norms, MLPs, softcap, initialisers, the loss.
 
 Counterpart of `repro.models.layers`. Parameters are plain dictionaries
 of tensors in the reference's layout; matmuls go through
@@ -77,3 +77,17 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask=None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32; with `mask`, the mean over the
+    tokens it keeps (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -18,9 +18,13 @@ fp32}`, with the reference's shapes and values.
 
 Storage: the int8 kernel's tensor-core product takes the weight K-major,
 so every int8 *matrix* (2-D: the attention projections, dense MLPs, the
-Mamba projections and the lm_head, all of which `linear` reads) is stored
-K-major, once: `q` is the `.mT` view of a contiguous `(d_out, d_in)`
-tensor, strides `(1, d_in)` (`k_major`). Stacked int8 weights (3-D and
+Mamba and xLSTM projections and the lm_head, all of which `linear` reads)
+is stored K-major, once: `q` is the `.mT` view of the first `d_in`
+columns of a contiguous `(d_out, ceil(d_in / 16) * 16)` tensor, strides
+`(1, ceil(d_in / 16) * 16)` (`k_major`): the kernel's TMA reads rows a
+multiple of 16 bytes apart, and a zero tail past `d_in` (xlstm-350m's
+sLSTM down projection, d_in 1365) is never read. Shapes and values stay
+the reference's. Stacked int8 weights (3-D and
 more: the MoE experts `(E, d, f)`, which `models.moe._w` dequantizes and
 which never reach the kernel) and fp8 weights keep the row-major layout.
 The number of dimensions tells the two apart, since `linear` takes 2-D
@@ -35,6 +39,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int8_matmul.kernel import (ROW_BYTES, pad_rows,
+                                                    padded)
 
 VALID_MODES = ("bf16", "int8", "fp8")
 
@@ -85,10 +91,17 @@ def _per_channel_scale(w: torch.Tensor, qmax: float) -> torch.Tensor:
 
 
 def k_major(q: torch.Tensor) -> torch.Tensor:
-    """The same (K, N) matrix stored K-major: the `.mT` view of a
-    contiguous (N, K) tensor, strides (1, K). Copies unless it is stored
-    so already."""
-    return q.mT.contiguous().mT
+    """The same (K, N) matrix stored K-major: the `.mT` view of the first
+    K columns of a contiguous (N, K_pad) tensor, K_pad = ceil(K / 16) * 16,
+    strides (1, K_pad), its tail zeros. Copies unless it is stored so
+    already."""
+    K, N = q.shape
+    ld = padded(K, ROW_BYTES)
+    if q.stride() == (1, ld):
+        return q
+    buf = q.new_zeros((N, ld))
+    buf[:, :K] = q.mT
+    return buf[:, :K].mT
 
 
 def stored(q: torch.Tensor) -> torch.Tensor:
@@ -133,7 +146,8 @@ def linear(x: torch.Tensor, w, qcfg: Optional[QuantConfig] = None
     bf16: the card's GEMM accumulates in fp32 (the runner turns off
     reduced-precision split-K reduction). int8 native: dynamic per-tensor
     activation quantization in plain PyTorch, as the reference does it
-    outside any kernel, then the int8 kernel on `x.reshape(-1, K)`.
+    outside any kernel, then the int8 kernel on `x.reshape(-1, K)` (its
+    rows padded to a multiple of 16 bytes where K is not one).
     fp8 and non-native int8: dequantize to bf16, then a bf16 matmul."""
     if isinstance(w, dict):
         q, scale = w["q"], w["scale"]
@@ -147,7 +161,8 @@ def linear(x: torch.Tensor, w, qcfg: Optional[QuantConfig] = None
         xs = act_scale(xf)
         xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
         K, N = q.shape
-        out = int8_matmul(xq.reshape(-1, K), q, xs.reshape(1), scale)
+        out = int8_matmul(pad_rows(xq.reshape(-1, K)), q, xs.reshape(1),
+                          scale)
         return out.reshape(*x.shape[:-1], N).to(x.dtype)
 
     return torch.matmul(x, dequantize(q, scale).to(x.dtype))

@@ -1,8 +1,11 @@
 """Model execution against the paged KV pool (real-execution tier).
 
 Counterpart of `repro.serving.runner` for decoders of attention, Mamba,
-mLSTM and sLSTM blocks, dense or MoE (`models.moe`), in any precision of
-`quant.BY_NAME`.
+mLSTM and sLSTM blocks, dense or MoE (`models.moe`), and the VLM's text
+stack (qwen2-vl-7b: M-RoPE over three equal position rows, as the
+reference's runner rotates it), in any precision of `quant.BY_NAME`. An
+encoder-decoder is refused, as the reference refuses it: its path is
+`models.prefill` and `models.decode_step`.
 Fixed-shape, mask-driven step functions over `max_batch` slots:
   prefill_fn — process padded prompts for newly admitted slots, scatter K/V
                into their pages, set their Mamba states, emit the first
@@ -113,6 +116,10 @@ def _mask_state(pool, new, active):
 def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
     """Build (prefill_fn, decode_fn) for this config."""
     model_lib.check_served(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "encoder-decoder serving uses the contiguous-cache path "
+            "(models.prefill, models.decode_step) only")
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     layers = list(zip(cfg.block_pattern(), cfg.moe_layer_mask()))
@@ -172,7 +179,9 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
         seq_lens set to lens for those slots."""
         B, Lp = tokens.shape
         x = model_lib.embed_tokens(params, cfg, tokens)
+        # M-RoPE rotates by (3, B, Lp) positions; the pages take (B, Lp)
         positions = model_lib._positions(cfg, B, Lp, device=x.device)
+        posmat = torch.arange(Lp, device=x.device)[None].expand(B, Lp)
         tok_active = (torch.arange(Lp, device=x.device)[None]
                       < lens[:, None]) & do_prefill[:, None]
         for p, pool, (kind, is_moe) in zip(params["layers"], pools, layers):
@@ -188,7 +197,7 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
                 x = x + linear(o.reshape(B, Lp, nq * hd), p["attn"]["wo"],
                                qcfg)
                 _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
-                            positions, tok_active, page_size)
+                            posmat, tok_active, page_size)
             else:
                 # over all Lp positions, pads included, as the reference
                 y, st = _recurrent(kind, p, h, None)

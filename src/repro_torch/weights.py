@@ -16,10 +16,15 @@ cut) is then stored K-major, as `quant.quantize_weight` stores it
 (`quant.stored`: one transposing copy, the same values). xLSTM blocks
 keep the reference's flat names (`mlstm_up`, ..., `slstm_down`), so they
 need no renaming; with tied embeddings the reference has no `lm_head`,
-and neither has the port. `pools_from_jax` cuts the reference's serving
-state (K/V pools, Mamba states `conv` and `h`, mLSTM states `C`, `n` and
-`m`, sLSTM states `c`, `n`, `m` and `h`, all stacked the same way) per
-layer.
+and neither has the port. An encoder-decoder's decoder layers carry
+`ln_x` and `xattn` like any other leaf; its stacked `encoder` (E, ...) is
+cut into one dict an encoder layer, and `pos_embed`, `enc_pos_embed` and
+`enc_final_norm` come across as they are. `pools_from_jax` cuts the
+reference's serving state (K/V pools, Mamba states `conv` and `h`, mLSTM
+states `C`, `n` and `m`, sLSTM states `c`, `n`, `m` and `h`, all stacked
+the same way) per layer, and `cache_from_jax` its contiguous decode cache
+(`{"len", "blocks"}`, cross-attention `xk`/`xv` included) into the
+port's `{"len", "layers"}`.
 """
 from __future__ import annotations
 
@@ -80,6 +85,17 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = _stored(_map(np_params["lm_head"],
                                          lambda a: to_torch(a, device)))
+    if "pos_embed" in np_params:
+        params["pos_embed"] = to_torch(np_params["pos_embed"], device)
+    if "encoder" in np_params:
+        params["encoder"] = [
+            _stored(_map(np_params["encoder"],
+                         lambda a, r=r: to_torch(a[r], device)))
+            for r in range(cfg.encoder_layers)]
+        params["enc_pos_embed"] = to_torch(np_params["enc_pos_embed"],
+                                           device)
+        params["enc_final_norm"] = _map(np_params["enc_final_norm"],
+                                        lambda a: to_torch(a, device))
     return params
 
 
@@ -90,3 +106,16 @@ def pools_from_jax(np_pools, cfg: ModelConfig, *, device="cpu"):
     U = model_lib.unit_size(cfg)
     return [_map(np_pools[i % U], lambda a, r=i // U: to_torch(a[r], device))
             for i in range(cfg.num_layers)]
+
+
+def cache_from_jax(np_cache, cfg: ModelConfig, *, device="cpu"):
+    """The reference's contiguous cache (`models.model.init_cache` or
+    `prefill`: `{"len": (B,), "blocks": [per unit position, each leaf (R,
+    ...)]}` as numpy arrays) as the port's `{"len", "layers": [per
+    layer]}`."""
+    U = model_lib.unit_size(cfg)
+    blocks = np_cache["blocks"]
+    return {"len": to_torch(np_cache["len"], device),
+            "layers": [_map(blocks[i % U],
+                            lambda a, r=i // U: to_torch(a[r], device))
+                       for i in range(cfg.num_layers)]}

@@ -2,8 +2,10 @@
 
 The int8 kernel's tensor-core product takes the weight K-major, so every
 int8 matrix that `quant.linear` reads is stored K-major: the reference's
-`(K, N)` shape and values, as the `.mT` view of a contiguous `(N, K)`
-tensor (strides `(1, K)`), one copy. Stacked expert weights (dequantized
+`(K, N)` shape and values, as the `.mT` view of the first K columns of a
+contiguous `(N, K_pad)` tensor, K_pad = ceil(K / 16) * 16 (strides `(1,
+K_pad)`: the kernel's TMA reads rows a multiple of 16 bytes apart; the
+tail is zeros), one copy. Stacked expert weights (dequantized
 by `models.moe._w`, never read by the kernel) and fp8 weights keep the
 row-major layout. Values are compared with the reference's bit for bit;
 layouts by strides.
@@ -22,6 +24,10 @@ from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.models import init_params
 from repro_torch.quant import k_major, quantize_tree, quantize_weight
 from repro_torch.weights import params_from_jax, to_torch
+
+
+def _k_pad(K):
+    return -(-K // 16) * 16
 
 ARCHS = ["llama31-8b", "qwen3-30b-a3b", "jamba-v0.1-52b"]
 
@@ -47,14 +53,17 @@ def _check_layout(tree, mode):
         q = leaf["q"]
         if mode == "int8" and q.ndim == 2:
             K, N = q.shape
-            assert q.stride() == (1, K), path
-            assert q.mT.is_contiguous() and q.dtype == torch.int8, path
+            assert q.stride() == (1, _k_pad(K)), path
+            assert q.dtype == torch.int8, path
             seen["k_major"] += 1
+            # one copy: the storage holds the padded rows' bytes
+            assert q.untyped_storage().nbytes() == N * _k_pad(K), path
         else:
             assert q.is_contiguous(), path
             seen["row_major"] += 1
-        # one copy: the storage holds exactly the matrix's bytes
-        assert q.untyped_storage().nbytes() == q.numel() * q.element_size()
+            # one copy: the storage holds exactly the matrix's bytes
+            assert q.untyped_storage().nbytes() == \
+                q.numel() * q.element_size()
     return seen
 
 
@@ -63,7 +72,8 @@ def _jax_params(arch, seed=1):
                            jax_reduced(arch, vocab=1024))
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (256, 384), (272, 136)])
+@pytest.mark.parametrize("shape", [(64, 96), (256, 384), (272, 136),
+                                   (1365, 1024), (1024, 1365), (4, 128)])
 def test_quantize_weight_stores_int8_matrix_k_major(shape):
     """The (K, N) matrix keeps its shape and the reference's values, bit
     for bit, stored K-major in one copy."""
@@ -73,7 +83,8 @@ def test_quantize_weight_stores_int8_matrix_k_major(shape):
     port = quantize_weight(to_torch(np.asarray(wj)), "int8")
     ref = to_torch(np.asarray(jquantize_weight(wj, "int8")["q"]))
     K, N = shape
-    assert port["q"].shape == (K, N) and port["q"].stride() == (1, K)
+    assert port["q"].shape == (K, N)
+    assert port["q"].stride() == (1, _k_pad(K))
     assert torch.equal(port["q"], ref)
 
 
@@ -126,7 +137,7 @@ def test_params_from_jax_stores_reference_int8_k_major(arch):
     tp = params_from_jax(jax.tree.map(np.asarray, jq), cfg)
     _check_layout(tp, "int8")
     head = tp["lm_head"]["q"]
-    assert head.stride() == (1, cfg.d_model)
+    assert head.stride() == (1, _k_pad(cfg.d_model))
     assert torch.equal(head, to_torch(np.asarray(jq["lm_head"]["q"])))
     # layer 0 is repeat 0 of unit position 0
     ref0 = jax.tree.map(lambda a: np.asarray(a)[0], jq["blocks"][0])
@@ -148,7 +159,7 @@ def test_init_params_int8_layout(arch):
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 272, 136), (8, 256, 384),
-                                   (300, 512, 64)])
+                                   (300, 512, 64), (8, 1365, 1024)])
 def test_int8_plain_equal_on_both_layouts(M, K, N):
     """The plain version reads strides: the same result, bit for bit, on
     the row-major and the K-major weight."""
@@ -158,7 +169,7 @@ def test_int8_plain_equal_on_both_layouts(M, K, N):
     xs = torch.tensor([0.013])
     ws = torch.from_numpy(rng.uniform(0.001, 0.02, (1, N)).astype(np.float32))
     wk = k_major(wq)
-    assert wk.stride() == (1, K) and torch.equal(wk, wq)
+    assert wk.stride() == (1, _k_pad(K)) and torch.equal(wk, wq)
     assert k_major(wk).data_ptr() == wk.data_ptr()     # no second copy
     assert torch.equal(int8_matmul_ref(xq, wk, xs, ws),
                        int8_matmul_ref(xq, wq, xs, ws))

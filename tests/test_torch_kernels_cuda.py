@@ -40,7 +40,8 @@ from repro_torch.kernels import bf16_gate, fp32_gate
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.int8_matmul.kernel import int8_matmul_kernel
+from repro_torch.kernels.int8_matmul.kernel import (int8_matmul_kernel,
+                                                    pad_rows)
 from repro_torch.kernels.int8_matmul.ops import int8_matmul
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
@@ -197,8 +198,10 @@ def test_flash_kernel_matches_plain(gen, B, Sq, Sk, Hq, Hkv, D, causal):
 
 
 # (Hq, Hkv, D) of the served heads added for codeqwen1.5-7b,
-# nemotron-4-15b, granite-34b and granite-moe-1b-a400m
-NEW_HEADS = [(32, 32, 128), (48, 8, 128), (48, 1, 128), (16, 8, 64)]
+# nemotron-4-15b, granite-34b and granite-moe-1b-a400m, and qwen2-vl-7b's
+# G 7 (28 query heads on 4 KV heads)
+NEW_HEADS = [(32, 32, 128), (48, 8, 128), (48, 1, 128), (16, 8, 64),
+             (28, 4, 128)]
 
 
 @pytest.mark.parametrize("Hq,Hkv,D", NEW_HEADS)
@@ -297,6 +300,34 @@ def test_flash_kernel_at_new_groups(gen, Hq, Hkv):
     k, v = _randn(gen, 8, 512, Hkv, 128), _randn(gen, 8, 512, Hkv, 128)
     out = flash_attention(q, k, v, causal=True)
     assert bf16_gate(out, flash_attention_ref(q, k, v, causal=True)) <= 1
+
+
+@pytest.mark.parametrize("B,Sq", [(8, 1500), (8, 448), (8, 1)])
+def test_flash_kernel_bidirectional_at_whisper_shapes(gen, B, Sq):
+    """whisper-base's attention without a mask (8 heads of 64 on 8 KV
+    heads, 1500 audio frames: 23 key tiles of 64 and a last one of 28): the
+    encoder's self-attention (Sq 1500), the decoder's cross-attention over
+    the frames (Sq 448) and one decode row. Counted among the launches
+    without a mask."""
+    q = _randn(gen, B, Sq, 8, 64)
+    k, v = _randn(gen, B, 1500, 8, 64), _randn(gen, B, 1500, 8, 64)
+    n = flash_attention_kernel.launches
+    m = flash_attention_kernel.noncausal_launches
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n + 1
+    assert flash_attention_kernel.noncausal_launches == m + 1
+    assert bf16_gate(out, flash_attention_ref(q, k, v, causal=False)) <= 1
+
+
+def test_gate_rejects_bidirectional_flash_without_last_key_tile(gen):
+    """Without a mask every row reads every key: dropping the last key
+    tile of 1500 frames (the 28 past 1472) fails the gate."""
+    q = _randn(gen, 8, 1500, 8, 64)
+    k, v = _randn(gen, 8, 1500, 8, 64), _randn(gen, 8, 1500, 8, 64)
+    out = flash_attention(q, k[:, :1472].contiguous(),
+                          v[:, :1472].contiguous(), causal=False)
+    assert bf16_gate(out, flash_attention_ref(q, k, v, causal=False)) > 1
 
 
 def test_gate_rejects_flash_kernel_head_dim_64_without_last_key_tile(gen):
@@ -403,8 +434,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError):
         paged_attention(_randn(gen, 1, 4, 128), kp, kp, bt.long(), lens)
-    with pytest.raises(ValueError):       # 7 query heads per KV head
-        paged_attention(_randn(gen, 1, 7, 128), kp, kp, bt, lens)
+    with pytest.raises(ValueError):       # 5 query heads per KV head
+        paged_attention(_randn(gen, 1, 5, 128), kp, kp, bt, lens)
     kp96 = _randn(gen, 4, 8, 1, 96)       # head_dim 96 is not compiled
     with pytest.raises(ValueError):
         paged_attention(_randn(gen, 1, 4, 96), kp96, kp96, bt, lens)
@@ -413,10 +444,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def _int8_inputs(gen, M, K, N):
-    """x_q (M, K), the weight (K, N) stored K-major as the model stores it
-    (`k_major`), and the scales."""
-    xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
-                       dtype=torch.int8)
+    """x_q (M, K) (its rows padded to a multiple of 16 bytes where K is
+    not one, as `linear` pads them: `pad_rows`), the weight (K, N) stored
+    K-major as the model stores it (`k_major`), and the scales."""
+    xq = pad_rows(torch.randint(-127, 128, (M, K), generator=gen,
+                                device="cuda", dtype=torch.int8))
     wq = k_major(torch.randint(-127, 128, (K, N), generator=gen,
                                device="cuda", dtype=torch.int8))
     xs = torch.rand(1, generator=gen, device="cuda") * 0.02 + 1e-3
@@ -468,6 +500,54 @@ def test_int8_kernel_ragged_k_and_n(gen, K, N):
         assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
 
 
+# xlstm-350m's sLSTM projections: down (K 1365 = int(4/3 * 1024), N 1024)
+# and up (K 1024, N 1365)
+XLSTM_SHAPES = [(1365, 1024), (1024, 1365)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 64, 65, 4096])
+@pytest.mark.parametrize("K,N", XLSTM_SHAPES + [(17, 3), (1, 1)])
+def test_int8_kernel_any_k_and_n(gen, M, K, N):
+    """K and N that are no multiple of 16 or 8 (xlstm-350m's sLSTM
+    projections, and the smallest), on the decode and prefill paths, on
+    the padded rows that `k_major` and `pad_rows` give: bit for bit; the
+    output is the (M, N) view of rows padded to a multiple of 4 floats."""
+    args = _int8_inputs(gen, M, K, N)
+    assert args[1].stride() == (1, -(-K // 16) * 16)
+    n = int8_matmul_kernel.launches
+    out = int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert int8_matmul_kernel.launches == n + 1
+    assert out.shape == (M, N) and out.stride()[1] == 1
+    assert torch.equal(out, int8_matmul_ref(*args))
+
+
+@pytest.mark.parametrize("M", [8, 4096])
+def test_int8_exact_check_rejects_dropped_k_tail(gen, M):
+    """At K 1365 the kernel run without the ragged tail (the 5 codes past
+    1360, as a K rounded down to a multiple of 16 would give) is not equal
+    to the full plain product."""
+    xq, wq, xs, ws = _int8_inputs(gen, M, 1365, 1024)
+    out = int8_matmul(xq[:, :1360], wq[:1360], xs, ws)
+    ref = int8_matmul_ref(xq, wq, xs, ws)
+    assert float((out != ref).float().mean()) > 0.9
+
+
+@pytest.mark.parametrize("K,N", XLSTM_SHAPES)
+def test_int8_linear_at_ragged_shapes_equals_cpu(gen, K, N):
+    """The int8 `linear` on a bf16 activation (8 x 512 rows, a prefill)
+    with a weight quantized on the CPU: the card's output equals the
+    CPU's bit for bit."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 512, K, generator=g).bfloat16()
+    w = quantize_weight((torch.randn(K, N, generator=g) * 0.02).bfloat16(),
+                        "int8")
+    card_w = {"q": k_major(w["q"].cuda()), "scale": w["scale"].cuda()}
+    out = linear(x.cuda(), card_w, BY_NAME["int8"]).cpu()
+    ref = linear(x, w, BY_NAME["int8"])
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 14336, 4096), (8, 256, 8192),
                                    (33, 2048, 4096), (64, 8192, 288)])
 def test_int8_kernel_split_k_equals_plain(gen, M, K, N):
@@ -496,12 +576,15 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take(gen):
         int8_matmul(xq.float(), wq, xs, ws)
     with pytest.raises(TypeError):
         int8_matmul(xq, wq, xs.double(), ws)
-    with pytest.raises(ValueError):       # K not a multiple of 16
+    with pytest.raises(ValueError):       # x_q's rows 250 bytes apart
         int8_matmul(xq[:, :250].contiguous(), k_major(wq[:250]), xs, ws)
     with pytest.raises(ValueError):       # a row-major (K, N) weight
         int8_matmul(xq, wq.contiguous(), xs, ws)
-    with pytest.raises(ValueError):       # K-major rows longer than K
-        int8_matmul(xq[:, :128].contiguous(), wq[:128], xs, ws)
+    with pytest.raises(ValueError):       # K-major rows 250 bytes apart
+        wt = torch.zeros(128, 250, dtype=torch.int8, device="cuda")
+        int8_matmul(xq[:, :248].contiguous(), wt[:, :248].mT, xs, ws)
+    with pytest.raises(ValueError):       # K-major rows shorter than K
+        int8_matmul(xq, wq.as_strided((256, 128), (1, 128)), xs, ws)
     with pytest.raises(ValueError):       # one operand on the CPU
         int8_matmul(xq, wq.cpu(), xs, ws)
 

@@ -158,6 +158,26 @@ def test_int8_linear_bit_exact_against_the_served_jit(amax):
           _served_linear()(xj, wq, JBY_NAME["int8"]))
 
 
+@pytest.mark.parametrize("K,N", [(1365, 1024), (1024, 1365)])
+def test_int8_linear_at_ragged_shapes_against_the_served_jit(K, N):
+    """xlstm-350m's sLSTM projections, down (K 1365) and up (N 1365): on
+    weights the reference quantized, stored K-major in rows padded to 1376
+    bytes, and activations whose rows the port pads the same way before the
+    kernel's plain version, `linear` (8 x 512 rows, a prefill, and 8 rows,
+    a decode step) gives the jitted reference's outputs bit for bit."""
+    rng = np.random.default_rng(9)
+    wq = jquantize_weight(jnp.asarray(rng.normal(size=(K, N)) * 0.02,
+                                      jnp.bfloat16), "int8")
+    w = {"q": stored(to_torch(np.asarray(wq["q"]))),
+         "scale": to_torch(np.asarray(wq["scale"]))}
+    assert w["q"].stride() == (1, -(-K // 16) * 16)
+    for shape in ((8, 512, K), (8, 1, K)):
+        xj, xt = _pair(rng, shape, "bfloat16")
+        out = linear(xt, w, BY_NAME["int8"])
+        assert out.shape == shape[:-1] + (N,)
+        _same(out, _served_linear()(xj, wq, JBY_NAME["int8"]))
+
+
 def test_act_scale_constant_is_the_jitted_references():
     """`INV_127` is the constant by which XLA's compiled reference
     multiplies the activations' amax (the op it lowers `xamax / 127.0`

@@ -175,6 +175,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.nemotron_4_15b",
             "repro_torch.configs.granite_34b",
             "repro_torch.configs.granite_moe_1b_a400m",
+            "repro_torch.configs.whisper_base",
+            "repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.models.attention", "repro_torch.models.model",
             "repro_torch.serving.fleet", "repro_torch.serving.fleet_jit",
             "repro_torch.serving.autoscale", "repro_torch.serving.precision",
             "repro_torch.kernels.fleet_loop.kernel",
@@ -237,8 +240,9 @@ def test_build_engine_quantizes_and_routes_through_qcfg():
 def test_card_refuses_what_one_card_cannot_serve():
     """On an 80 GB card: mixtral-8x7b (46.7 B parameters) and
     jamba-v0.1-52b fit in int8 and fp8 but not in bf16; xlstm-350m serves
-    in bf16 but not in int8, whose kernel does not take its sLSTM down
-    projection's K of 1365. Each refusal raises; nothing falls back."""
+    in bf16 and in int8, whose kernel takes its sLSTM projections' K and N
+    of 1365; qwen2-vl-7b in bf16 and int8. Each refusal raises; nothing
+    falls back."""
     card = 80 * 10 ** 9
     for arch in ("mixtral-8x7b", "jamba-v0.1-52b"):
         cfg = get_config(arch)
@@ -248,7 +252,8 @@ def test_card_refuses_what_one_card_cannot_serve():
             tserve.check_card(cfg, quant, card)
     xl = get_config("xlstm-350m")
     tserve.check_card(xl, "bf16", card)
-    with pytest.raises(NotImplementedError, match="1365"):
-        tserve.check_card(xl, "int8", card)
+    tserve.check_card(xl, "int8", card)
+    for quant in ("bf16", "int8"):
+        tserve.check_card(get_config("qwen2-vl-7b"), quant, card)
     for arch in ("llama31-8b", "qwen3-30b-a3b"):
         tserve.check_card(get_config(arch), "bf16", card)

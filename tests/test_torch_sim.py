@@ -29,7 +29,7 @@ from repro_torch.launch import serve as tserve
 
 ARCHS = ("llama31-8b", "qwen3-30b-a3b", "jamba-v0.1-52b", "mixtral-8x7b",
          "xlstm-350m", "codeqwen1.5-7b", "nemotron-4-15b", "granite-34b",
-         "granite-moe-1b-a400m")
+         "granite-moe-1b-a400m", "whisper-base", "qwen2-vl-7b")
 HWS = ("tpu-v5e", "tpu-v5p", "tpu-v6e", "cpu-node", "h100-sxm")
 
 

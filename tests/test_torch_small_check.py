@@ -1,6 +1,7 @@
 """`chip_smoke.py`'s card-vs-CPU verdicts for mixtral-8x7b in int8,
 jamba-v0.1-52b in int8, xlstm-350m in bf16, granite-34b in int8 and
-granite-moe-1b-a400m in bf16, run on the CPU with both sides on the CPU
+granite-moe-1b-a400m in bf16, and for whisper-base on the contiguous
+cache, run on the CPU with both sides on the CPU
 (`scripts/small_check_sensitivity.py`): identical sides pass, rounding
 noise (one bf16 step on a share of the operations' results, as dense as
 an H100's differences from the CPU) passes, and each planted fault
@@ -95,3 +96,30 @@ def test_card_breakdown_finds_nothing_between_the_cpu_and_itself(arch,
         and st["share differing"] < 1e-2 for st in ops.values()), ops
     assert kv or states
     assert readings["passes"], readings
+
+
+def test_whisper_verdict_passes_rounding_noise_and_fails_faults():
+    """whisper-base's check: every `linear` and attention result 1% nudged
+    passes; flash without the last frame tile (seen by the mean K/V and
+    xk/xv differences alone) and decode without the cross-attention
+    fail."""
+    passing = ["every linear and attention, 1.0% nudged"]
+    failing = ["decode skips the cross-attention",
+               "flash without a mask drops the last frame tile (1500 run "
+               "as 1472)"]
+    seen = {name: (ok, r) for name, ok, r in _sensitivity().run_whisper(
+        names=set(passing + failing))}
+    assert set(seen) == set(passing + failing)
+    for name in passing:
+        assert seen[name][0], (name, seen[name][1])
+    for name in failing:
+        assert not seen[name][0], (name, seen[name][1])
+
+
+def test_whisper_identical_sides_pass():
+    cfg, params, batch = chip_smoke.small_whisper()
+    sides = chip_smoke.drive_whisper(cfg, params, batch,
+                                     {"a": "cpu", "b": "cpu"})
+    readings, ok = chip_smoke.whisper_readings(sides["a"], sides["b"])
+    assert ok, readings
+    assert readings["last logits' max diff over their largest"] == 0.0

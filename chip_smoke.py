@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's live cost-metered server on one NVIDIA card.
+"""Drive the PyTorch port's live cost-metered server, and its training, on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -14,8 +15,12 @@ Phases, each of which exits non-zero on failure:
      products, sums and quotients rounded to nearest (mul.rn, add.rn,
      div.rn) and no fused multiply-add (fma.f64) nor any product or sum
      that ptxas may contract (its SASS counted: DFMA there divides), and
-     ptxas must report no spill bytes for the int8 and scan kernels on a
-     fresh build; SYNCS (mbarrier) counted;
+     ptxas must report no spill bytes for the int8, scan and 8-bit AdamW
+     kernels on a fresh build; SYNCS (mbarrier) counted; the 8-bit AdamW
+     library's PTX must round every fp32 product, sum, quotient and square
+     root on its own (mul.rn, add.rn, div.rn, sqrt.rn) and fuse only the
+     multiply-adds its source writes (fma.rn), nothing ptxas may contract
+     (its SASS FFMAs counted: the source's and div.rn's and sqrt.rn's);
   3. kernels: each kernel against its plain PyTorch version at the served
      shapes of llama31-8b, qwen3-30b-a3b and jamba-v0.1-52b (and the int8
      GEMM at mixtral-8x7b's, phi3-medium-14b's and nemotron-4-15b's
@@ -52,7 +57,13 @@ Phases, each of which exits non-zero on failure:
      idle; flash also at a served prefill call's kv_len, half
      the slots at 512 and half at 0, with its TFLOP/s, share of its bound
      and ratio to SDPA; the int8 GEMM with its TOP/s and `torch._int_mm`
-     on the K-major weight and on a row-major copy;
+     on the K-major weight and on a row-major copy. The fused 8-bit AdamW
+     update at llama31-8b's leaf shapes (embedding, wq, wk, gate, down, a
+     norm scale; bf16 g and p, wq also with fp32 g) and xlstm-350m's
+     ragged sLSTM width 1365: p, codes and scales bit for bit against its
+     plain version after 3 updates, a planted fault (the last 256-block of
+     each row left un-re-encoded) rejected, timed beside its bound (10
+     bytes an element in bf16, plus the scales);
   4. small-input checks: narrow models (llama31-8b in bf16 and in int8,
      qwen3-30b-a3b in bf16, mixtral-8x7b in int8 with its own routing,
      phi3-medium-14b in int8, codeqwen1.5-7b in bf16, nemotron-4-15b and
@@ -87,10 +98,11 @@ Phases, each of which exits non-zero on failure:
      in its time:
      qwen3-30b-a3b, jamba-v0.1-52b and mixtral-8x7b in fp8 serve their
      first 8 layers (jamba's one whole unit: 1 attention, 7 Mamba, 4
-     MoE), then qwen3-30b-a3b and phi3-medium-14b in bf16 their first 8
-     and xlstm-350m in bf16 and int8 its first 4, each at full width with
-     every block kind and kernel of its path; every other int8 path keeps
-     full depth. Each path prints the card's
+     MoE), then qwen3-30b-a3b, phi3-medium-14b, granite-34b,
+     codeqwen1.5-7b and nemotron-4-15b in bf16 their first 8 and
+     xlstm-350m in bf16 and int8 its first 4, each at
+     full width with every block kind and kernel of its path; every other
+     int8 path keeps full depth. Each path prints the card's
      peak allocated memory. Every request must finish with its token
      count, the K/V pools and recurrent states must hold no NaN and no
      infinity but the -inf
@@ -147,9 +159,30 @@ Phases, each of which exits non-zero on failure:
      finishes, tokens conserved, flash and paged launches exact (counts set
      to 0 before it), K/V finite, the meter's average finite and positive.
      Then the example's sim half on `h100-sxm`, and the same traffic and
-     engine on the sim tier beside the real readings.
+     engine on the sim tier beside the real readings;
+  9. training, every served model freed first: (a) a narrow llama31-8b
+     (2 layers, d_model 512, vocab 1024, bf16) trains `TRAIN_SMALL`'s 5
+     adamw8bit steps on the card (the fused kernel) and on the CPU (its
+     plain version) from the same weights and batches, held by
+     `TRAIN_SMALL_BOUNDS` (each step's loss and the final parameters),
+     the card's run with the gradient clip skipped rejected; and step by
+     step (each step also taken on the CPU from a copy of the card's
+     state), held by `TRAIN_LOCKSTEP_BOUNDS` (the shares of parameters
+     and moment codes that differ), the clip skipped and the kernel's
+     unencoded last block rejected; (b)
+     `repro_torch.launch.train.main(TRAIN_FULL)`: llama31-8b at full width
+     and depth (32 layers, 8.03 B parameters) with adamw8bit, 4 steps of
+     2 x 512 tokens, its counts set to 0 before it (gates: every loss and
+     grad norm finite, the loss falling at every step, one adamw8bit
+     launch per leaf per step, every weight matrix moved from the initial
+     weights; each step's stream time as the entry point returns it,
+     tokens/s, peak allocated, and the optimizer's device ms a step on
+     the trained state against its bound printed); (c)
+     `examples/torch_train_small.py`'s ~100M config: 4 steps straight,
+     then 2, a checkpoint, a restore and 2 more, the last loss within
+     1e-2 of the straight run's.
 Then `main_paths`, `contiguous_api`, `sim_tier`, `fleet`,
-`live_validation` and `kernels` JSON lines, the
+`live_validation`, `training` and `kernels` JSON lines, the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {...}}`. Needs no network and imports no JAX.
 """
@@ -158,6 +191,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -251,11 +285,16 @@ MAIN_PATHS = [("llama31-8b", "bf16"), ("llama31-8b", "int8"),
 # port, and its int8 twin, which runs only the int8 kernel; each keeps
 # every block kind and kernel of its path (jamba's 8 layers are one whole
 # unit: 1 attention, 7 Mamba, 4 MoE; xlstm's 4 two mLSTM and two sLSTM
-# blocks)
+# blocks). Since phase 9 (training) the run came within 11 s of its 880 s
+# mark on one host, and with granite-34b in bf16 cut ended at 882 s on a
+# slower one, so granite-34b, codeqwen1.5-7b and nemotron-4-15b in bf16
+# are cut too, their int8 twins running the same attention kernels (G 48,
+# 1 and 6) at full depth
 DEPTH_CUTS = {("qwen3-30b-a3b", "fp8"): 8, ("jamba-v0.1-52b", "fp8"): 8,
               ("mixtral-8x7b", "fp8"): 8, ("qwen3-30b-a3b", "bf16"): 8,
               ("phi3-medium-14b", "bf16"): 8, ("xlstm-350m", "bf16"): 4,
-              ("xlstm-350m", "int8"): 4}
+              ("xlstm-350m", "int8"): 4, ("granite-34b", "bf16"): 8,
+              ("codeqwen1.5-7b", "bf16"): 8, ("nemotron-4-15b", "bf16"): 8}
 # phase 4: narrow models, the kernels on the card against the plain
 # versions on the CPU; those in REAL_ROUTING route as their full config,
 # those in SMALL_HEADS take these (query heads, KV heads, head_dim): the
@@ -302,6 +341,53 @@ PAPER_CHIPS = (("llama31-8b", 1), ("qwen3-30b-a3b", 1), ("mixtral-8x7b", 2))
 # requests at its peak (their TTFT p50 15.0 s), and the backlog held all
 # 8 slots to the end of the run
 LIVE = dict(phase_s=20.0, scale=0.375)
+# phase 3: the fused 8-bit AdamW update at llama31-8b's leaf shapes (the
+# embedding, wq, wk, the MLP's gate and down projections, a norm scale)
+# and at xlstm-350m's sLSTM width 1365 (a ragged last block of 85), with
+# the clip scale ADAMW_CLIP where a case says so
+ADAMW_SHAPES = [("embed", (128256, 4096)), ("wq", (4096, 4096)),
+                ("wk", (4096, 1024)), ("gate", (4096, 14336)),
+                ("down", (14336, 4096)), ("norm scale", (4096,)),
+                ("xlstm-350m sLSTM, ragged", (1024, 1365))]
+ADAMW_CLIP = 0.37
+# fp32 operations an element of the update: both dequantizations (3
+# each), m (3: a product and a fused multiply-add) and v (4), u (two
+# quotients, a sum, a square root, a reciprocal and a product), p (a fused
+# multiply-add) and both encodings (a quotient, a square root, a product
+# and a rounding each)
+ADAMW_F32_OPS = 29
+# phase 9: training. (a) the narrow llama31-8b, adamw8bit, on the card and
+# on the CPU from the same weights and batches; (b) the full llama31-8b
+# through the port's training entry point; (c)
+# `examples/torch_train_small.py` with a restart. (a) runs (and the
+# example trains with) at lr 1e-3, the ~100M example's rate: at 3e-3
+# adamw8bit diverges on the narrow model within its 5 steps. Every bound
+# of (a) sits at the geometric mean of the farthest sound reading (the
+# card against the CPU) and the nearest planted fault that reading is
+# held against, weight seeds 1-8 (`scripts/train_check_sensitivity.py
+# --seeds 8`; H100 80GB HBM3, 700 W; PERF.md §6). Free-running, 5 steps
+# (fault: the card's run with the clip skipped): the largest difference
+# of a step's loss 0.143 / 0.364 and of the final parameters 10.2 / 46.5.
+# These read rounding that compounds (a v code rounded to 0 makes an
+# element's update explode on either side), so they only guard the whole
+# run; their mean |difference| separated nothing (sound 0.00147, fault
+# 0.00114) and is printed. Step by step (each step also taken on the CPU
+# from a copy of the card's state): the share of parameters not equal
+# 0.0301 / 0.788 (clip skipped; the kernel's unencoded last block leaves
+# every parameter right, 0.015-0.023) and of moment codes more than 1
+# apart 0.00213 / 0.351 (the unencoded block; clip skipped 0.72). (b)
+# runs at 3e-5, where the full model's loss falls at every step
+# (12.47, 10.68, 9.92, 9.06; at 1e-4 it rises to 19.50 by step 3, as adamw
+# does at full width without warm-up, and adamw8bit's codec adds a rise
+# of its own on the card and the CPU alike:
+# `scripts/train_full_width_witness.py`, PERF.md §6)
+TRAIN_SMALL = dict(steps=5, batch=4, seq=64, lr=1e-3)
+TRAIN_SMALL_BOUNDS = {"loss": 0.228, "params max": 21.8}
+TRAIN_FAULTS = ("clip skipped", "block left unencoded")
+TRAIN_LOCKSTEP_BOUNDS = {"params off": 0.154, "codes off": 0.0273}
+TRAIN_FULL = ["--arch", "llama31-8b", "--opt", "adamw8bit", "--lr", "3e-5",
+              "--steps", "4", "--batch", "2", "--seq", "512",
+              "--log-every", "1", "--seed", "0"]
 FLEET_F64_PER_ROUND = 31
 FLEET_CHAIN = {"other": 17, "quotients": 2}
 # a one-thread probe of the float64 latencies the chain is made of
@@ -356,7 +442,7 @@ def sass_counts(lib_path: str) -> dict:
     return {k: sum(o.startswith(k) for o in ops)
             for k in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS",
                       "LDGSTS", "MUFU.EX2", "MUFU.RCP64H", "DFMA",
-                      "DMUL", "DADD")}
+                      "DMUL", "DADD", "FFMA")}
 
 
 def device_ms(fn, arg_sets, per_graph=20, replays=5) -> float:
@@ -2120,6 +2206,370 @@ def _live_phases(rates, phase_s, reqs, samples):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the fused 8-bit AdamW update (phase 3) and training (phase 9)
+# ---------------------------------------------------------------------------
+
+def adamw8bit_bytes(n: int, rows: int, last: int, g_bytes: int,
+                    p_bytes: int) -> int:
+    """Bytes one update of a leaf must move: g read, p read and written,
+    both moments' codes read and written, and their block scales (two read,
+    two written, 4 bytes each, a 256-wide block)."""
+    return n * (g_bytes + 2 * p_bytes + 4) + rows * -(-last // 256) * 16
+
+
+def check_adamw8bit(gen):
+    """Phase 3's check of the fused 8-bit AdamW update: at llama31-8b's
+    leaf shapes and xlstm-350m's ragged sLSTM width (`ADAMW_SHAPES`, bf16
+    g and p; wq also with fp32 g, as accumulation gives it), 3 consecutive
+    updates from a fresh state (zero codes, scales 1e-12) on the same
+    gradients, the kernel against its plain version on the card: p, codes
+    and scales bit for bit, with a clip scale (`ADAMW_CLIP`) on all but the
+    norm scale and the embedding. The planted fault, the last 256-block of
+    each row left un-re-encoded, must leave codes or scales unequal. Then
+    the kernel timed (a CUDA graph of repeated in-place updates, as
+    `device_ms`), the plain version with CUDA events around repeated calls
+    (it is Python over chunks of rows), each beside its bound: the bytes
+    of `adamw8bit_bytes` over 3.35 TB/s (its `ADAMW_F32_OPS` fp32
+    operations an element take about a seventh of that time at 67
+    TFLOP/s). No PyTorch call computes this function:
+    `torch.optim.AdamW(fused=True)` keeps fp32 moments."""
+    from repro_torch.kernels.adamw8bit.kernel import adamw8bit_kernel
+    from repro_torch.kernels.adamw8bit.ref import (adamw8bit_update_ref,
+                                                   num_blocks)
+    hyper = dict(lr=3e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+    cases = [(name, shape, torch.bfloat16) for name, shape in ADAMW_SHAPES]
+    cases.append(("wq, fp32 g", dict(ADAMW_SHAPES)["wq"], torch.float32))
+    variants = []
+    for name, shape, g_dtype in cases:
+        rows, last = math.prod(shape[:-1]), shape[-1]
+        nb = num_blocks(last)
+        clip = None if name in ("embed", "norm scale") else torch.tensor(
+            ADAMW_CLIP, device="cuda")
+        p0 = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        sides = {}
+        for side in ("kernel", "plain", "fault"):
+            sides[side] = [p0.clone()] + [
+                t for _ in range(2) for t in (
+                    torch.zeros(shape, dtype=torch.int8, device="cuda"),
+                    torch.full(shape[:-1] + (nb,), 1e-12, device="cuda"))]
+        del p0
+        fns = {"kernel": adamw8bit_kernel, "plain": adamw8bit_update_ref,
+               "fault": adamw8bit_kernel}
+        for t in range(1, 4):
+            g = (torch.randn(shape, generator=gen, device="cuda")
+                 * 10.0 ** -t).to(g_dtype)
+            tt = torch.tensor(float(t), device="cuda")
+            bc = [1 - torch.pow(torch.tensor(b, device="cuda"), tt)
+                  for b in (0.9, 0.999)]
+            for side, state in sides.items():
+                adamw8bit_kernel.skip_last_block = side == "fault"
+                try:
+                    fns[side](g, *state, *bc, clip, **hyper)
+                finally:
+                    adamw8bit_kernel.skip_last_block = False
+        torch.cuda.synchronize()
+        unequal = [int((a.reshape(-1).view(torch.uint8) !=
+                        b.reshape(-1).view(torch.uint8)).sum())
+                   for a, b in zip(sides["kernel"], sides["plain"])]
+        if any(unequal):
+            fail(f"adamw8bit [{name} {shape}] differs from its plain version "
+                 f"after 3 updates: bytes unequal in p, m codes, m scales, "
+                 f"v codes, v scales: {unequal}")
+        fault = [int((a != b).sum()) for a, b in zip(sides["fault"][1:],
+                                                      sides["plain"][1:])]
+        if not any(fault):
+            fail(f"adamw8bit [{name}]: the check accepts a planted fault "
+                 f"(the last block of each row left un-re-encoded)")
+        args = [g, *sides["kernel"], *bc, clip]
+        del sides["fault"]
+        ms = device_ms(lambda *a: adamw8bit_kernel(*a, **hyper), [args])
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        reps = 3 if rows * last > 1 << 26 else 20
+        e0.record()
+        for _ in range(reps):
+            adamw8bit_update_ref(g, *sides["plain"], *bc, clip, **hyper)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1) / reps
+        n = rows * last
+        nbytes = adamw8bit_bytes(n, rows, last, g.element_size(), 2)
+        bound_ms, bound_by = bound(nbytes, n * ADAMW_F32_OPS, FP32_PEAK)
+        v = {"shape": f"{name} {tuple(shape)}, g {str(g_dtype)[6:]}, p "
+                      f"bf16" + ("" if clip is None else
+                                 f", clip {ADAMW_CLIP}"),
+             "max_abs_err": 0.0, "fault": {"codes and scales unequal":
+                                           sum(fault)},
+             "fault_desc": "the last 256-block of each row left "
+                           "un-re-encoded",
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None,
+             "library_note": "none: torch.optim.AdamW(fused=True) keeps "
+                             "fp32 moments",
+             "share_of_bound": bound_ms / ms, "bytes": nbytes}
+        print(f"kernel adamw8bit_update [{v['shape']}]: p, codes and scales "
+              f"bit for bit after 3 updates; planted fault ({v['fault_desc']}"
+              f"): {sum(fault)} codes and scales unequal (rejected)",
+              flush=True)
+        print(f"kernel adamw8bit_update [{v['shape']}]: ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms=None bound_ms="
+              f"{bound_ms:.4f} ({bound_by}), {bound_ms / ms:.3f} of its "
+              f"bound, {nbytes / ms / 1e6:.0f} GB/s", flush=True)
+        variants.append(v)
+        del sides, args, g
+        torch.cuda.empty_cache()
+    return variants
+
+
+def train_small_run(device, seed: int, grad_clip=1.0):
+    """`TRAIN_SMALL`'s steps of the narrow llama31-8b (2 layers, d_model
+    512, 4 heads of 128, vocab 1024, bf16) with adamw8bit on `device`, from
+    weights drawn on the CPU from `seed` and the same `SyntheticDataLoader`
+    batches. Returns (each step's loss, the final parameters on the CPU)."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import init_params
+    from repro_torch.training import (SyntheticDataLoader, adamw8bit,
+                                      build_train_step)
+    cfg = reduced("llama31-8b", d_model=512, ff=1024, vocab=1024)
+    params = _tree_map(lambda t: t.to(device), init_params(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(seed)))
+    opt = adamw8bit(TRAIN_SMALL["lr"])
+    state = opt.init(params)
+    step = build_train_step(cfg, opt, remat=True, grad_clip=grad_clip)
+    dl = SyntheticDataLoader(cfg.vocab_size, TRAIN_SMALL["batch"],
+                             TRAIN_SMALL["seq"], seed=seed, device=device)
+    losses = []
+    for i in range(TRAIN_SMALL["steps"]):
+        params, state, stats = step(params, state, dl.batch_at(i))
+        losses.append(float(stats["loss"]))
+    return losses, _tree_map(lambda t: t.cpu(), params)
+
+
+def train_small_readings(a, b) -> dict:
+    """Two runs of `train_small_run`: the largest difference of a step's
+    loss, and the final parameters' largest and mean |difference|."""
+    from repro_torch.training.optimizer import tree_leaves
+    d = torch.cat([(x.float() - y.float()).abs().flatten()
+                   for x, y in zip(tree_leaves(a[1]), tree_leaves(b[1]))])
+    return {"loss": max(abs(x - y) for x, y in zip(a[0], b[0])),
+            "params max": float(d.max()), "params mean": float(d.mean())}
+
+
+def within_train_bounds(readings: dict) -> bool:
+    return all(readings[k] <= b for k, b in TRAIN_SMALL_BOUNDS.items())
+
+
+def train_lockstep_run(seed: int, fault=None) -> dict:
+    """`TRAIN_SMALL`'s steps of `train_small_run`'s model on the card, each
+    step also taken on the CPU (the plain version) from a copy of the
+    card's parameters and state before it, on the same batch: a step's
+    readings see that step's differences only, not those the steps before
+    it compounded. `fault` plants one on the card's side: "clip skipped"
+    (its train step without the clip) or "block left unencoded" (the
+    kernel's `skip_last_block`). Returns the largest over the steps of the
+    loss |difference|, the grad norm's relative difference, the share of
+    parameter elements not equal, and the share of moment codes more than
+    1 apart."""
+    from repro_torch.configs import reduced
+    from repro_torch.kernels.adamw8bit.kernel import adamw8bit_kernel
+    from repro_torch.models import init_params
+    from repro_torch.training import (SyntheticDataLoader, adamw8bit,
+                                      build_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = reduced("llama31-8b", d_model=512, ff=1024, vocab=1024)
+    params = _tree_map(lambda t: t.cuda(), init_params(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(seed)))
+    opt = adamw8bit(TRAIN_SMALL["lr"])
+    state = opt.init(params)
+    card_step = build_train_step(
+        cfg, opt, remat=True,
+        grad_clip=None if fault == "clip skipped" else 1.0)
+    cpu_step = build_train_step(cfg, opt, remat=True, grad_clip=1.0)
+    data = {d: SyntheticDataLoader(cfg.vocab_size, TRAIN_SMALL["batch"],
+                                   TRAIN_SMALL["seq"], seed=seed, device=d)
+            for d in ("cpu", "cuda")}
+
+    def share(pairs, off):
+        n = sum(b.numel() for _, b in pairs)
+        return sum(int(off(a.cpu(), b).sum()) for a, b in pairs) / n
+
+    out = dict.fromkeys(("loss", "grad_norm", "params off", "codes off"),
+                        0.0)
+    for i in range(TRAIN_SMALL["steps"]):
+        to_cpu = lambda t: None if t is None else t.to(  # noqa: E731
+            "cpu", copy=True)
+        p_cpu, s_cpu, st_cpu = cpu_step(_tree_map(to_cpu, params),
+                                        _tree_map(to_cpu, state),
+                                        data["cpu"].batch_at(i))
+        adamw8bit_kernel.skip_last_block = fault == "block left unencoded"
+        try:
+            params, state, st = card_step(params, state,
+                                          data["cuda"].batch_at(i))
+        finally:
+            adamw8bit_kernel.skip_last_block = False
+        gn = float(st_cpu["grad_norm"])
+        codes = [(a, b) for a, b in zip(tree_leaves(state),
+                                        tree_leaves(s_cpu))
+                 if a.dtype == torch.int8]
+        now = {"loss": abs(float(st["loss"]) - float(st_cpu["loss"])),
+               "grad_norm": abs(float(st["grad_norm"]) - gn) / gn,
+               "params off": share(list(zip(tree_leaves(params),
+                                            tree_leaves(p_cpu))),
+                                   lambda a, b: a != b),
+               "codes off": share(codes, lambda a, b:
+                                  (a.int() - b.int()).abs() > 1)}
+        out = {k: max(out[k], now[k]) for k in out}
+    return out
+
+
+def within_lockstep_bounds(readings: dict) -> bool:
+    return all(readings[k] <= b for k, b in TRAIN_LOCKSTEP_BOUNDS.items())
+
+
+def small_training_check(seed: int = 1):
+    """Phase 9a. Free-running: `train_small_run` on the card (the fused
+    kernel) against the CPU (its plain version), held by
+    `TRAIN_SMALL_BOUNDS`; the card's run with the clip skipped must fail
+    them. Step by step: `train_lockstep_run`, held by
+    `TRAIN_LOCKSTEP_BOUNDS`; each planted fault must fail them."""
+    cpu = train_small_run("cpu", seed)
+    card = train_small_run("cuda", seed)
+    faulty = train_small_run("cuda", seed, grad_clip=None)
+    sound, fault = (train_small_readings(cpu, card),
+                    train_small_readings(cpu, faulty))
+    lock = {f or "sound": train_lockstep_run(seed, f)
+            for f in (None,) + TRAIN_FAULTS}
+    ok = within_train_bounds(sound) and within_lockstep_bounds(lock["sound"])
+    rejected = not within_train_bounds(fault) and not any(
+        within_lockstep_bounds(lock[f]) for f in TRAIN_FAULTS)
+    return {"losses cpu": cpu[0], "losses card": card[0],
+            "losses card, clip skipped": faulty[0], "sound": sound,
+            "fault (clip skipped)": fault, "bounds": TRAIN_SMALL_BOUNDS,
+            "step by step": lock, "step bounds": TRAIN_LOCKSTEP_BOUNDS,
+            "pass": ok, "fault rejected": rejected}
+
+
+def _flag(argv, name):
+    return argv[argv.index(name) + 1]
+
+
+def full_width_training(kernel):
+    """Phase 9b: `repro_torch.launch.train.main(TRAIN_FULL)`, llama31-8b at
+    full width and depth (32 layers, 8.03 B parameters in bf16) with
+    adamw8bit, its counts set to 0 before it. Gates: every loss and grad
+    norm finite, the loss lower at each step than at the one before; the
+    kernel launched once per leaf per step; every matrix moved from the
+    initial weights (drawn again from the entry point's seed). Readings:
+    each step's time on the stream (the entry point's own), tokens/s,
+    peak allocated, and the optimizer's device ms a step (CUDA events
+    around `update` on the trained state, after the run) beside the bound
+    of its updates (`adamw8bit_bytes` of every leaf over 3.35 TB/s)."""
+    import repro_torch.launch.train as train_mod
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import adamw8bit
+    from repro_torch.training.optimizer import tree_leaves
+    kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, steps = train_mod.main(TRAIN_FULL)
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = tree_leaves(params)
+    shapes = [tuple(p.shape) for p in leaves]
+    # the initial weights, drawn as the entry point draws them
+    init = init_params(get_config("llama31-8b"), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           int(_flag(TRAIN_FULL, "--seed"))))
+    moved = [float((a != b).float().mean())
+             for a, b in zip(leaves, tree_leaves(init))]
+    matrices_moved = min(m for m, s in zip(moved, shapes) if len(s) > 1)
+    # the optimizer alone on the trained state, the initial weights as
+    # gradients, a clip scale as the train step passes one
+    opt = adamw8bit(float(_flag(TRAIN_FULL, "--lr")))
+    scale = torch.tensor(0.5, device="cuda")
+    opt_ms = []
+    for _ in range(3):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        opt.update(init, state, params, grad_scale=scale)
+        e[1].record()
+        e[1].synchronize()
+        opt_ms.append(e[0].elapsed_time(e[1]))
+    kernel.launches = launches      # the timing's launches are not the path's
+    del params, state, init, leaves
+    n_steps = int(_flag(TRAIN_FULL, "--steps"))
+    tokens = int(_flag(TRAIN_FULL, "--batch")) * int(_flag(TRAIN_FULL,
+                                                           "--seq"))
+    bound_ms = sum(adamw8bit_bytes(math.prod(s), math.prod(s[:-1]), s[-1],
+                                   2, 2) for s in shapes) / MEM_BW * 1e3
+    later = sorted(s["s"] for s in steps[1:]) or [steps[0]["s"]]
+    out = {"arch": "llama31-8b", "layers": 32,
+           "lr": float(_flag(TRAIN_FULL, "--lr")),
+           "params": sum(math.prod(s) for s in shapes),
+           "leaves": len(shapes), "steps": steps, "launches": launches,
+           "expected_launches": len(shapes) * n_steps,
+           "share_moved_least_matrix": matrices_moved,
+           "share_moved_norms": [m for m, s in zip(moved, shapes)
+                                 if len(s) == 1][:4],
+           "wall_s": wall, "step_s_median_after_first": later[len(later) // 2],
+           "tokens_per_s": tokens / later[len(later) // 2],
+           "optimizer_ms": opt_ms, "optimizer_bound_ms": bound_ms,
+           "peak_allocated_gib": peak}
+    print(f"training llama31-8b full width: {json.dumps(out)}", flush=True)
+    finite = all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                 for s in steps)
+    if len(steps) != n_steps or not finite:
+        fail(f"full-width training: {len(steps)} steps, losses and grad "
+             f"norms {steps}")
+    if not all(b["loss"] < a["loss"] for a, b in zip(steps, steps[1:])):
+        fail(f"full-width training: the loss did not fall at every step: "
+             f"{steps}")
+    if launches != out["expected_launches"]:
+        fail(f"full-width training: adamw8bit launched {launches} times, "
+             f"not once per leaf per step ({out['expected_launches']})")
+    if not matrices_moved > 0:
+        fail("full-width training: a weight matrix kept its initial values")
+    return out
+
+
+def restart_check():
+    """Phase 9c: `examples/torch_train_small.py`'s ~100M config on the
+    card: 4 steps straight; then 2 steps, a checkpoint, a restore
+    (`restore_latest`, by re-running with the same directory) and 2 more.
+    The last loss must agree within the reference's 1e-2. The directories
+    are deleted after."""
+    import importlib.util
+    import shutil
+    import tempfile
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_small", os.path.join(ROOT, "examples",
+                                          "torch_train_small.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    dirs = [tempfile.mkdtemp(prefix="train_small_") for _ in range(2)]
+    runs = []
+    try:
+        for d, steps in ((dirs[0], 4), (dirs[1], 2), (dirs[1], 4)):
+            history = example.main(["--steps", str(steps),
+                                    "--ckpt-dir", d])[2]
+            runs.append([s["loss"] for s in history])
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    straight, resumed = runs[0][-1], runs[2][-1]
+    out = {"straight": runs[0], "before": runs[1], "after restore": runs[2],
+           "diff": abs(straight - resumed)}
+    print(f"training restart (~100M, examples/torch_train_small.py): "
+          f"{json.dumps(out)}", flush=True)
+    if len(runs[2]) != 2 or not out["diff"] < 1e-2:
+        fail(f"training restart: the resumed run {runs[2]} does not continue "
+             f"the straight one {runs[0]} (within 1e-2)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2127,6 +2577,7 @@ def main():
         sys.exit(2)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.adamw8bit.kernel import adamw8bit_kernel
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_kernel
@@ -2187,7 +2638,21 @@ def main():
              f"quotient to nearest (mul.rn, add.rn, div.rn) and hold no "
              f"fused multiply-add nor a product or sum ptxas may contract: "
              f"{ptx}")
-    for name in ("int8_matmul", "ssm_scan"):    # empty log: built before
+    sass = sass_counts(str(build.library_path("adamw8bit")))
+    ptx = {k: v for k, v in build.ptx_opcodes("adamw8bit").items()
+           if k.endswith(".f32") and k.split(".")[0] in (
+               "mul", "add", "sub", "div", "sqrt", "fma", "mad", "rcp")}
+    print(f"build: adamw8bit PTX: {ptx}; SASS FFMA {sass['FFMA']} (the "
+          f"source's fused multiply-adds and the expansions of div.rn and "
+          f"sqrt.rn)", flush=True)
+    loose = [k for k in ptx if k.startswith("mad") or ".rn." not in k]
+    if loose or not all(ptx.get(f"{op}.rn.f32") for op in (
+            "mul", "add", "div", "sqrt", "fma")):
+        fail(f"adamw8bit's PTX must round every fp32 product, sum, quotient "
+             f"and square root on its own (.rn) and fuse only what the "
+             f"source writes as __fmaf_rn: {ptx}")
+    # an empty log: built before
+    for name in ("int8_matmul", "ssm_scan", "adamw8bit"):
         spills = [line.strip() for line in logs[name].splitlines()
                   if "spill" in line and not line.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
@@ -2251,6 +2716,7 @@ def main():
                       f"{m['bound_ms']:.4f} ({m['bound_by']}), "
                       f"{m['share_of_bound']:.3f} of its bound, "
                       f"{m['tflops']:.1f} TFLOP/s", flush=True)
+    adamw_variants = check_adamw8bit(gen)
     # the yardsticks' cuBLAS workspaces, one per stream they ran on
     getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
     torch.cuda.empty_cache()
@@ -2308,6 +2774,28 @@ def main():
     t0 = time.perf_counter()
     live = live_validation(kernels)
     print(f"live validation: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 9. training on the card, every served model freed first
+    phase("training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    adamw8bit_kernel.launches = 0
+    small = small_training_check()
+    train_launches = {"small check (card runs)": adamw8bit_kernel.launches}
+    print(f"training small check llama31-8b bf16: "
+          f"{'pass' if small['pass'] and small['fault rejected'] else 'FAIL'}"
+          f" {json.dumps(small)}", flush=True)
+    if not (small["pass"] and small["fault rejected"]):
+        failed.append(f"training small check: {small}")
+    full = full_width_training(adamw8bit_kernel)
+    train_launches["llama31-8b full width"] = full["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    adamw8bit_kernel.launches = 0
+    restart = restart_check()
+    train_launches["restart ~100M"] = adamw8bit_kernel.launches
+    print(f"training: {time.perf_counter() - t0:.1f} s", flush=True)
     phase("done")
     print(json.dumps({"main_paths": paths}))
     print(json.dumps({"contiguous_api": contiguous}))
@@ -2315,6 +2803,8 @@ def main():
                                    "matrix": matrix}}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"live_validation": live}))
+    print(json.dumps({"training": {"small_check": small, "full_width": full,
+                                   "restart": restart}}))
 
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2365,6 +2855,19 @@ def main():
                      launches_by_path=fleet["launches"],
                      lanes=fleet["lanes_by_path"],
                      ms_per_launch=fleet["ms_per_launch"]))
+    opt_ms = sorted(full["optimizer_ms"])
+    rows.append({"name": "adamw8bit_update", "route": "cuda",
+                 "source": "src/repro_torch/csrc/adamw8bit.cu",
+                 "replaces": "src/repro/training/optimizer.py:121",
+                 "launches": sum(train_launches.values()),
+                 "launches_by_path": train_launches,
+                 "max_abs_err": 0.0,
+                 **{k: adamw_variants[0][k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")},
+                 "step_optimizer_ms": opt_ms[len(opt_ms) // 2],
+                 "step_bound_ms": full["optimizer_bound_ms"],
+                 "variants": adamw_variants})
     print(json.dumps({"kernels": rows}))
     print(smi)
     if failed:

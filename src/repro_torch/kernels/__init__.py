@@ -7,6 +7,9 @@
   fleet_loop/       the fleet's event loop, float64 (csrc/fleet_loop.cu):
                     no Pallas counterpart; it replaces the jit fleet's
                     compiled `lax.while_loop`
+  adamw8bit/        the 8-bit AdamW update of one leaf (csrc/adamw8bit.cu):
+                    no Pallas counterpart; it replaces the XLA fusion of
+                    the jitted `adamw8bit` update
 
 Each subpackage has `ref.py` (plain version), `kernel.py` (ctypes binding
 with a launch count) and `ops.py` (dispatch: kernel for CUDA tensors,

@@ -24,7 +24,9 @@ reference's serving state (K/V pools, Mamba states `conv` and `h`, mLSTM
 states `C`, `n` and `m`, sLSTM states `c`, `n`, `m` and `h`, all stacked
 the same way) per layer, and `cache_from_jax` its contiguous decode cache
 (`{"len", "blocks"}`, cross-attention `xk`/`xv` included) into the
-port's `{"len", "layers"}`.
+port's `{"len", "layers"}`. `opt_state_from_jax` cuts an optimizer state
+of the reference's `adamw` or `adamw8bit` the same way (its moments'
+int8 codes keep their row-major layout: only `linear` reads K-major).
 """
 from __future__ import annotations
 
@@ -66,37 +68,31 @@ def _stored(tree):
     return out
 
 
+def _params_like(tree, cfg: ModelConfig, device):
+    """A tree shaped as the reference's params (`blocks` stacked per unit
+    position, `encoder` stacked; any other key, such as `embed`, as it is)
+    cut into the port's, leaves converted as they are."""
+    U = model_lib.unit_size(cfg)
+    conv = lambda t: _map(t, lambda a: to_torch(a, device))
+    out = {k: conv(v) for k, v in tree.items()
+           if k not in ("blocks", "encoder")}
+    out["layers"] = [_map(tree["blocks"][i % U],
+                          lambda a, r=i // U: to_torch(a[r], device))
+                     for i in range(cfg.num_layers)]
+    if "encoder" in tree:
+        out["encoder"] = [_map(tree["encoder"],
+                               lambda a, r=r: to_torch(a[r], device))
+                          for r in range(cfg.encoder_layers)]
+    return out
+
+
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
                     device="cpu") -> Dict[str, Any]:
     """np_params: the reference's params with every leaf as a numpy array
     (e.g. `jax.tree.map(np.asarray, params)`)."""
     model_lib.check_served(cfg)
-    U = model_lib.unit_size(cfg)
-    blocks = np_params["blocks"]
-    layers = [_stored(_map(blocks[i % U],
-                           lambda a, r=i // U: to_torch(a[r], device)))
-              for i in range(cfg.num_layers)]
-    params = {
-        "embed": to_torch(np_params["embed"], device),
-        "final_norm": _map(np_params["final_norm"],
-                           lambda a: to_torch(a, device)),
-        "layers": layers,
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _stored(_map(np_params["lm_head"],
-                                         lambda a: to_torch(a, device)))
-    if "pos_embed" in np_params:
-        params["pos_embed"] = to_torch(np_params["pos_embed"], device)
-    if "encoder" in np_params:
-        params["encoder"] = [
-            _stored(_map(np_params["encoder"],
-                         lambda a, r=r: to_torch(a[r], device)))
-            for r in range(cfg.encoder_layers)]
-        params["enc_pos_embed"] = to_torch(np_params["enc_pos_embed"],
-                                           device)
-        params["enc_final_norm"] = _map(np_params["enc_final_norm"],
-                                        lambda a: to_torch(a, device))
-    return params
+    return {k: [_stored(x) for x in v] if isinstance(v, list) else _stored(v)
+            for k, v in _params_like(np_params, cfg, device).items()}
 
 
 def pools_from_jax(np_pools, cfg: ModelConfig, *, device="cpu"):
@@ -119,3 +115,14 @@ def cache_from_jax(np_cache, cfg: ModelConfig, *, device="cpu"):
             "layers": [_map(blocks[i % U],
                             lambda a, r=i // U: to_torch(a[r], device))
                        for i in range(cfg.num_layers)]}
+
+
+def opt_state_from_jax(np_state, cfg: ModelConfig, *, device="cpu"):
+    """The reference's `adamw` or `adamw8bit` state (`{"step", "m", "v"}`,
+    every leaf a numpy array; a moment is an fp32 array or `{"q",
+    "scale"}`) as the port's, whose moments mirror `params_from_jax`'s
+    tree. Blocks of the 8-bit moments run along the last axis, so cutting
+    the stacked leaves changes none."""
+    return {"step": to_torch(np_state["step"], device),
+            "m": _params_like(np_state["m"], cfg, device),
+            "v": _params_like(np_state["v"], cfg, device)}

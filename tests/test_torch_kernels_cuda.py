@@ -30,6 +30,11 @@ of dt * (A log2 e), updates h with one FMA and sums over N in another
 order. Running the decode step with h0 read as zeros, or a prefill without
 its last chunk of time steps, must fail it. Its prefill grid must fit the
 card in one wave at jamba-v0.1-52b's served shape.
+
+The 8-bit AdamW update is held to its plain version bit for bit (p, the
+moments' codes and scales after 3 updates): both round every operation
+alike, the fused multiply-adds included. Leaving the last block of each
+row un-re-encoded must break that equality.
 """
 import pytest
 import torch
@@ -920,3 +925,115 @@ def test_fleet_loop_wrapper_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="uplen"):
         fleet_loop_kernel(_on(md, "cuda"), _on(bad, "cuda"),
                           torch.as_tensor(r_arr, device="cuda"), cap)
+
+
+# ---------------------------------------------------------------------------
+# the fused 8-bit AdamW update: bit for bit against its plain version
+# ---------------------------------------------------------------------------
+
+HYPER = dict(lr=3e-3, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def _adamw8bit_leaf(gen, shape, p_dtype):
+    from repro_torch.kernels.adamw8bit.ref import num_blocks
+    p = (torch.randn(*shape, generator=gen, device="cuda") * 0.02).to(
+        p_dtype)
+    nb = num_blocks(shape[-1])
+    zq = lambda: torch.zeros(shape, dtype=torch.int8, device="cuda")
+    zs = lambda: torch.full(shape[:-1] + (nb,), 1e-12, device="cuda")
+    return [p, zq(), zs(), zq(), zs()]
+
+
+def _adamw8bit_steps(gen, state, fn, g_dtype, steps, clip, wd, seed=1):
+    """`steps` updates of `state` (p, codes and scales, in place) by `fn`,
+    on gradients drawn from `seed` (the same for every caller)."""
+    g_gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in range(1, steps + 1):
+        g = (torch.randn(state[0].shape, generator=g_gen, device="cuda")
+             * 10.0 ** (-t)).to(g_dtype)
+        tt = torch.tensor(float(t), device="cuda")
+        bc1 = 1 - torch.pow(torch.tensor(0.9, device="cuda"), tt)
+        bc2 = 1 - torch.pow(torch.tensor(0.999, device="cuda"), tt)
+        scale = None if clip is None else torch.tensor(clip, device="cuda")
+        fn(g, *state, bc1, bc2, scale, weight_decay=wd, **HYPER)
+
+
+@pytest.mark.parametrize("shape,p_dtype,g_dtype,clip,wd", [
+    ((4096,), torch.bfloat16, torch.bfloat16, None, 0.0),  # a norm scale
+    ((1024, 1365), torch.bfloat16, torch.bfloat16, 0.37, 0.0),  # ragged
+    ((512, 4096), torch.bfloat16, torch.float32, 0.37, 0.1),    # accumulated
+    ((3, 7, 300), torch.bfloat16, torch.bfloat16, None, 0.1),
+    ((64, 1000), torch.bfloat16, torch.float32, 0.5, 0.0),
+])
+def test_adamw8bit_kernel_equals_plain_bit_for_bit(gen, shape, p_dtype,
+                                                   g_dtype, clip, wd):
+    from repro_torch.kernels.adamw8bit.kernel import adamw8bit_kernel
+    from repro_torch.kernels.adamw8bit.ops import adamw8bit_update
+    from repro_torch.kernels.adamw8bit.ref import adamw8bit_update_ref
+    got = _adamw8bit_leaf(gen, shape, p_dtype)
+    want = [t.clone() for t in got]
+    n = adamw8bit_kernel.launches
+    _adamw8bit_steps(gen, got, adamw8bit_update, g_dtype, 3, clip, wd)
+    torch.cuda.synchronize()
+    assert adamw8bit_kernel.launches == n + 3
+    _adamw8bit_steps(gen, want, adamw8bit_update_ref, g_dtype, 3, clip, wd)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    assert not torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+def test_adamw8bit_rejects_a_block_left_unencoded(gen):
+    from repro_torch.kernels.adamw8bit.kernel import adamw8bit_kernel
+    from repro_torch.kernels.adamw8bit.ref import adamw8bit_update_ref
+    got = _adamw8bit_leaf(gen, (256, 1365), torch.bfloat16)
+    want = [t.clone() for t in got]
+    adamw8bit_kernel.skip_last_block = True
+    try:
+        _adamw8bit_steps(gen, got, adamw8bit_kernel, torch.bfloat16, 3,
+                         None, 0.0)
+    finally:
+        adamw8bit_kernel.skip_last_block = False
+    _adamw8bit_steps(gen, want, adamw8bit_update_ref, torch.bfloat16, 3,
+                     None, 0.0)
+    assert not torch.equal(got[1], want[1])
+    assert not torch.equal(got[2], want[2])
+    # the other blocks of each row (the last starts at 5 * 256) are intact
+    for a, b in zip(got[:2] + got[3:4], want[:2] + want[3:4]):
+        assert torch.equal(a[:, :1280], b[:, :1280])
+    assert torch.equal(got[2][:, :5], want[2][:, :5])
+
+
+def test_adamw8bit_library_fuses_only_what_the_source_asks(gen):
+    # every fp32 product, sum, quotient and square root rounded on its own
+    # (`.rn`), the fused multiply-adds being the four the source writes
+    from repro_torch.kernels import build
+    f32 = {k: v for k, v in build.ptx_opcodes("adamw8bit").items()
+           if k.endswith(".f32")}
+    for op in ("mul.rn", "add.rn", "div.rn", "sqrt.rn", "fma.rn"):
+        assert f32.get(f"{op}.f32"), (op, f32)
+    assert not [k for k in f32 if k.split(".")[0] == "mad"
+                or (k.split(".")[0] in ("mul", "add", "sub", "fma", "div",
+                                        "sqrt") and ".rn." not in k)], f32
+
+
+def test_adamw8bit_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    from repro_torch.kernels.adamw8bit.kernel import adamw8bit_kernel
+    p, mq, ms, vq, vs = _adamw8bit_leaf(gen, (8, 300), torch.bfloat16)
+    one = torch.ones((), device="cuda")
+    g = torch.zeros_like(p)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        adamw8bit_kernel(g.cpu(), p, mq, ms, vq, vs, one, one, **HYPER)
+    with pytest.raises(TypeError, match="int8"):
+        adamw8bit_kernel(g, p, mq.float(), ms, vq, vs, one, one, **HYPER)
+    with pytest.raises(TypeError, match="p bf16"):      # no fp32 p
+        adamw8bit_kernel(g.float(), p.float(), mq, ms, vq, vs, one, one,
+                         **HYPER)
+    with pytest.raises(ValueError, match="shapes"):
+        adamw8bit_kernel(g, p, mq, ms[:, :1].contiguous(), vq, vs, one, one,
+                         **HYPER)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw8bit_kernel(g.t(), p.t(), mq.t(), ms, vq.t(), vs, one, one,
+                         **HYPER)
+    with pytest.raises(ValueError, match="blocks of 256"):
+        adamw8bit_kernel(g, p, mq, ms, vq, vs, one, one, block=128, **HYPER)

@@ -9,9 +9,10 @@ multi-head attention), nemotron-4-15b (squared-ReLU MLP, layernorm) and
 granite-34b (multi-query attention, 88 layers); the MoE
 granite-moe-1b-a400m (head_dim 64, 32 experts, tied embeddings); the
 encoder-decoder whisper-base (learned positions, stubbed audio frames,
-tied embeddings); and the VLM qwen2-vl-7b (M-RoPE, stubbed vision
-patches). llama4-maverick, which one card does not hold, arrives with the
-slice that shards it.
+tied embeddings); the VLM qwen2-vl-7b (M-RoPE, stubbed vision
+patches); and llama4-maverick-400b-a17b (128 experts, top-1, a shared
+expert, MoE on every other layer; one card holds its 2-layer unit, not
+its 48 layers).
 
 `reduced(name)` returns a tiny same-family config for CPU tests.
 """
@@ -35,12 +36,13 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs import (  # noqa: E402
     codeqwen1_5_7b, granite_34b, granite_moe_1b_a400m, jamba_v0_1_52b,
-    llama31_8b, mixtral_8x7b, nemotron_4_15b, phi3_medium_14b, qwen2_vl_7b,
-    qwen3_30b_a3b, whisper_base, xlstm_350m)
+    llama31_8b, llama4_maverick_400b_a17b, mixtral_8x7b, nemotron_4_15b,
+    phi3_medium_14b, qwen2_vl_7b, qwen3_30b_a3b, whisper_base, xlstm_350m)
 
 _MODULES = (llama31_8b, qwen3_30b_a3b, jamba_v0_1_52b, mixtral_8x7b,
             xlstm_350m, phi3_medium_14b, codeqwen1_5_7b, nemotron_4_15b,
-            granite_34b, granite_moe_1b_a400m, whisper_base, qwen2_vl_7b)
+            granite_34b, granite_moe_1b_a400m, whisper_base, qwen2_vl_7b,
+            llama4_maverick_400b_a17b)
 
 _REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

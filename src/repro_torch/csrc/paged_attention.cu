@@ -395,8 +395,9 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 // query heads per KV head G): (128, 4) llama31-8b, jamba-v0.1-52b,
 // mixtral-8x7b and phi3-medium-14b; (128, 8) qwen3-30b-a3b; (128, 1)
 // codeqwen1.5-7b; (128, 6) nemotron-4-15b; (128, 7) qwen2-vl-7b (its
-// eighth mma column zero, as G 6's last two); (128, 48) granite-34b, as 6
-// sub-groups of 8; (64, 2) granite-moe-1b-a400m. A config that needs
+// eighth mma column zero, as G 6's last two); (128, 5)
+// llama4-maverick-400b-a17b (columns 6-8 zero); (128, 48) granite-34b, as
+// 6 sub-groups of 8; (64, 2) granite-moe-1b-a400m. A config that needs
 // another (D, G) adds its instantiation here and in the wrapper's list.
 // q, the pools and out 16-byte aligned (the rows are read 16 bytes at a
 // time).
@@ -423,6 +424,7 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
   PAGED_CASE(128, 1, 1)
   PAGED_CASE(128, 6, 1)
   PAGED_CASE(128, 7, 1)
+  PAGED_CASE(128, 5, 1)
   PAGED_CASE(128, 8, 6)
   PAGED_CASE(64, 2, 1)
 #undef PAGED_CASE

@@ -15,10 +15,10 @@ from repro_torch.kernels import build
 
 # compiled for the served (head_dim, query heads per KV head): llama31-8b
 # (128, 4), qwen3-30b-a3b (128, 8), codeqwen1.5-7b (128, 1),
-# nemotron-4-15b (128, 6), qwen2-vl-7b (128, 7), granite-34b (128, 48)
-# and granite-moe-1b-a400m (64, 2)
-COMPILED = ((128, 4), (128, 8), (128, 1), (128, 6), (128, 7), (128, 48),
-            (64, 2))
+# nemotron-4-15b (128, 6), qwen2-vl-7b (128, 7), llama4-maverick-400b-a17b
+# (128, 5), granite-34b (128, 48) and granite-moe-1b-a400m (64, 2)
+COMPILED = ((128, 4), (128, 8), (128, 1), (128, 6), (128, 7), (128, 5),
+            (128, 48), (64, 2))
 
 
 def _lib():

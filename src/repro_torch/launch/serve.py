@@ -14,12 +14,14 @@ native fp8 GEMM). `--device cpu` runs `reduced(arch, vocab=1024)` with
 the kernels' plain versions instead. Every arch of `configs` is served by
 name: llama31-8b, qwen3-30b-a3b, jamba-v0.1-52b, mixtral-8x7b,
 xlstm-350m, phi3-medium-14b, codeqwen1.5-7b, nemotron-4-15b, granite-34b,
-granite-moe-1b-a400m and qwen2-vl-7b (text only, M-RoPE over equal
-positions, as the reference serves it); whisper-base, an
+granite-moe-1b-a400m, qwen2-vl-7b (text only, M-RoPE over equal
+positions, as the reference serves it) and llama4-maverick-400b-a17b
+(text only, at a cut depth: `layers`); whisper-base, an
 encoder-decoder, has no server, as in the reference (its path is
 `models.prefill` and `models.decode_step`). On the card `check_card`
 refuses what one card cannot serve (weights larger than its memory, such
-as mixtral-8x7b or jamba-v0.1-52b in bf16), and the card's peak
+as mixtral-8x7b or jamba-v0.1-52b in bf16, or llama4-maverick-400b-a17b
+at its full 48 layers in any precision), and the card's peak
 allocated memory is printed at the end. It prices at the hardware it runs
 on: `cpu-node` on the CPU, and on the card the book entry of its name
 (`CARD_HW`; a card without one raises).
@@ -86,14 +88,14 @@ def real_tier_hw(device) -> str:
 
 def check_card(cfg, quant: str, card_bytes: int):
     """Raise NotImplementedError for a model that one card of `card_bytes`
-    cannot serve: weights larger than its memory (they wait for a sharded
-    `parallel/`). Every shape is taken: the int8 kernel takes any K and N
+    cannot serve: weights larger than its memory (serving across cards
+    is not ported; `cut_depth` serves the first layers). Every shape is taken: the int8 kernel takes any K and N
     (xlstm-350m's sLSTM projections, K or N 1365, among them)."""
     need = cfg.param_count() * BY_NAME[quant].weight_bytes
     if need > card_bytes:
         raise NotImplementedError(
             f"{cfg.name} in {quant}: {need / 1e9:.1f} GB of weights do not "
-            f"fit one card of {card_bytes / 1e9:.1f} GB; sharding across "
+            f"fit one card of {card_bytes / 1e9:.1f} GB; serving across "
             "cards is not ported yet")
 
 

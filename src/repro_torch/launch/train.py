@@ -6,9 +6,10 @@
 
 Counterpart of `repro.launch.train`, with its flags and its log lines,
 plus `--device` (default `cuda`: the card; without one it raises unless
-`--device cpu`, which runs the plain versions). There is no mesh: on one
-device the reference's host mesh is (1, 1), where its sharding
-constraints change nothing (the port's mesh waits for `parallel/`).
+`--device cpu`, which runs the plain versions). The loop runs under
+`shardctx(make_host_mesh())`, as the reference's: a `DeviceMesh` over an
+initialised process group, else the abstract (1, 1) mesh of one device,
+where every sharding constraint resolves to replication.
 Weights are random, drawn from `--seed` in bf16 on the device; the
 optimizer's update is the fused 8-bit kernel on the card with `--opt
 adamw8bit`. Restart-and-continue: re-running with the same `--ckpt-dir`
@@ -27,7 +28,9 @@ import time
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import init_params
+from repro_torch.parallel import shardctx
 from repro_torch.serving.executors import resolve_device
 from repro_torch.training import (CheckpointManager, SyntheticDataLoader,
                                   adamw, adamw8bit, build_train_step)
@@ -58,8 +61,12 @@ def main(argv=None):
     cfg = (reduced(args.arch, layers=args.layers, d_model=args.d_model,
                    vocab=args.vocab, ff=args.ff)
            if args.reduced else get_config(args.arch))
-    opt = (adamw8bit if args.opt == "adamw8bit" else adamw)(args.lr)
+    with shardctx(make_host_mesh()):
+        return _train(args, cfg, device)
 
+
+def _train(args, cfg, device):
+    opt = (adamw8bit if args.opt == "adamw8bit" else adamw)(args.lr)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, device=device, generator=gen)
     opt_state = opt.init(params)

@@ -3,7 +3,7 @@ dense or MoE, the encoder-decoder (whisper-base) and the VLM's text
 stack (qwen2-vl-7b): parameters, embedding, the full-sequence forward and
 loss, and prefill and decode on a contiguous cache.
 
-Counterpart of `repro.models.model`, all of it but the mesh. The
+Counterpart of `repro.models.model`. The
 reference stacks each layer's parameters over the R repeats of its
 superblock and scans them; PyTorch runs eagerly, so the port keeps one
 parameter dictionary per layer in `params["layers"]` (and per encoder
@@ -28,9 +28,20 @@ encoder's and the cross-attention, as the served prefill runs it where
 the reference computes it in `jnp`; `forward` and `train_loss` through the
 plain functions of `models.attention`, the reference's own roundings,
 since they need autograd and the kernel has none; `decode_step` through
-`attention.decode_attention` on the contiguous cache, as the reference.
-`constrain` and `constrain_cache` are identities: the port has no mesh
-yet (ROADMAP Queue A item 12).
+`attention.decode_attention` on the contiguous cache, as the reference
+(`_flash_decode_attention` with `PERF.flash_decode`).
+
+The mesh half follows the reference's `shard_map` contract literally:
+replicated in, replicated out, the work split inside. Under
+`parallel.shardctx(mesh)` with a `DeviceMesh`, every rank calls the same
+function on the whole of its inputs; `_flash_decode_attention` takes its
+batch shard and its sequence shard of the cache, combines the partial
+softmaxes over the "model" axis' group and gathers the batch over the
+batch axes' groups, and `_local_batch_shard_map` (`PERF.local_recurrence`)
+runs a recurrent block on its batch shard and gathers its outputs. Each
+falls back to the plain function exactly where the reference does.
+`constrain` and `constrain_cache` sit at the reference's places; they
+change only a DTensor's placements (`parallel.sharding.constrain`).
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -51,6 +63,9 @@ from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, cross_entropy_loss, dense_init, embed_init,
     init_mlp, init_norm, softcap)
+from repro_torch.parallel.collectives import combine_partial_softmax
+from repro_torch.parallel.sharding import (
+    constrain, current_mesh, logical_spec, mesh_axes)
 from repro_torch.quant import linear, quantize_tree
 
 MAX_POS = 32768          # learned-position table size (whisper)
@@ -59,20 +74,18 @@ AUX_LOSS_COEF = 0.01
 
 @dataclasses.dataclass
 class PerfConfig:
-    """The reference's performance lever that acts without a mesh:
-    `kv_cache_dtype`, the contiguous cache's K/V dtype (bf16, or
-    `torch.float8_e4m3fn`). Its `flash_decode` and `local_recurrence`
-    change nothing without a mesh and arrive with it (ROADMAP Queue A
-    item 12)."""
+    """The reference's performance levers: `kv_cache_dtype`, the
+    contiguous cache's K/V dtype (bf16, or `torch.float8_e4m3fn`);
+    `local_recurrence`, recurrent blocks on the rank's batch shard
+    (`_local_batch_shard_map`); `flash_decode`, decode attention as
+    partial softmaxes over the cache's sequence shards
+    (`_flash_decode_attention`). The last two act only under a mesh."""
     kv_cache_dtype: Any = torch.bfloat16
+    local_recurrence: bool = False
+    flash_decode: bool = False
 
 
 PERF = PerfConfig()
-
-
-def constrain(x, *names):
-    """The reference's sharding constraint: an identity without a mesh."""
-    return x
 
 
 def unit_size(cfg: ModelConfig) -> int:
@@ -189,7 +202,8 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
                  ) -> torch.Tensor:
     # F.embedding raises on an id outside the vocabulary, where the
     # reference's jnp.take would fill NaN.
-    return F.embedding(tokens.long(), params["embed"])
+    x = F.embedding(tokens.long(), params["embed"])
+    return constrain(x, "batch", "seq", "d_model")
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor, qcfg=None
@@ -204,7 +218,8 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor, qcfg=None
         logits = torch.matmul(x.float(), w.float().T)
     else:
         logits = linear(x, params["lm_head"], qcfg).float()
-    return softcap(logits, cfg.logit_softcap)
+    logits = softcap(logits, cfg.logit_softcap)
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def _positions(cfg: ModelConfig, batch: int, seq: int, offset=None,
@@ -266,6 +281,9 @@ def _apply_attn_block(p, cfg: ModelConfig, x, positions, qcfg,
     q, k, v = attn.qkv(p["attn"], h, cfg.num_heads, cfg.num_kv_heads, hd, qcfg)
     q = attn.rotate(cfg.rope_kind, q, positions, cfg.rope_theta)
     k = attn.rotate(cfg.rope_kind, k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "qheads", None)
+    k = constrain(k, "batch", "seq", "kvheads", None)
+    v = constrain(v, "batch", "seq", "kvheads", None)
     if flash:
         o = flash_attention(q, k, v, causal=True)
     elif S > attn.CHUNKED_THRESHOLD:
@@ -287,6 +305,66 @@ def _apply_attn_block(p, cfg: ModelConfig, x, positions, qcfg,
     return x, cache
 
 
+def _batch_coord(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """This rank's index along the batch axes `axes` of a `DeviceMesh`
+    (the first axis major, as a spec entry orders them) and their size."""
+    if not hasattr(mesh, "get_local_rank"):
+        raise TypeError("a sharded region needs a DeviceMesh; an abstract "
+                        "mesh has no ranks")
+    sizes = mesh_axes(mesh)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    return idx, math.prod(sizes[a] for a in axes)
+
+
+def _gather_batch(t: torch.Tensor, mesh, axes: Tuple[str, ...]
+                  ) -> torch.Tensor:
+    """All-gather the batch shards along dim 0, over the last of `axes`
+    first, so the shards land in `_batch_coord` order."""
+    for a in reversed(axes):
+        parts = [torch.empty_like(t) for _ in range(mesh_axes(mesh)[a])]
+        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
+        t = torch.cat(parts, 0)
+    return t
+
+
+def _batch_axes(mesh, x) -> Optional[Tuple[str, ...]]:
+    """The mesh axes x's batch (dim 0) shards over, or None where the
+    rules leave it replicated (batch smaller than or not divisible by the
+    data degree)."""
+    bspec = logical_spec(x.shape, ("batch",), mesh)
+    bax = bspec[0] if len(bspec) else None
+    return (bax,) if isinstance(bax, str) else bax
+
+
+def _local_batch_shard_map(fn, p, x):
+    """Run a recurrent block on this rank's batch shard with replicated
+    params, then gather every output whose leading dim is the shard's
+    batch (the blocks' outputs and states are all batch-major): the
+    time-loop recurrence stays local to the rank."""
+    mesh = current_mesh()
+    if mesh is None:
+        return fn(p, x)
+    bax = _batch_axes(mesh, x)
+    if bax is None:
+        # gate: batch smaller than the DP degree cannot be split
+        return fn(p, x)
+    idx, n = _batch_coord(mesh, bax)
+    b = x.shape[0] // n
+
+    def gather(t):
+        if isinstance(t, dict):
+            return {k: gather(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(gather(v) for v in t)
+        if t.ndim and t.shape[0] == b:
+            return _gather_batch(t, mesh, bax)
+        return t
+
+    return gather(fn(p, x[idx * b:(idx + 1) * b]))
+
+
 def _apply_block_seq(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
                      positions, qcfg, enc_kv=None, make_cache=False,
                      flash=False):
@@ -298,16 +376,21 @@ def _apply_block_seq(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
     else:
         h = apply_norm(p["ln1"], x, cfg.norm_kind)
         if kind == "mamba":
-            y, state = ssm_lib.apply_mamba(p["mamba"], h, cfg.ssm, qcfg)
+            fn = lambda p_, h_: ssm_lib.apply_mamba(p_["mamba"], h_, cfg.ssm,
+                                                    qcfg)
         elif kind == "mlstm":
-            y, state = xlstm_lib.mlstm_seq(p, h, cfg.num_heads, cfg.xlstm,
-                                           None, qcfg)
+            fn = lambda p_, h_: xlstm_lib.mlstm_seq(
+                p_, h_, cfg.num_heads, cfg.xlstm, None, qcfg)
         else:
-            y, state = xlstm_lib.slstm_seq(p, h, cfg.xlstm, None, qcfg)
+            fn = lambda p_, h_: xlstm_lib.slstm_seq(p_, h_, cfg.xlstm, None,
+                                                    qcfg)
+        y, state = (_local_batch_shard_map(fn, p, h)
+                    if PERF.local_recurrence else fn(p, h))
         x = x + y
         if make_cache:
             cache = state
     x, aux = _apply_ff_aux(p, cfg, x, is_moe, qcfg)
+    x = constrain(x, "batch", "seq", "d_model")
     return x, aux, cache
 
 
@@ -481,9 +564,24 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def constrain_cache(cfg: ModelConfig, cache):
-    """The reference's sharding constraints on the cache: an identity
-    without a mesh."""
-    return cache
+    """The reference's sharding constraints on the cache, by the names of
+    each leaf (the reference's, without its stacked repeat dimension)."""
+    def visit(blk):
+        c = {}
+        for name, arr in blk.items():
+            if name in ("k", "v"):
+                c[name] = constrain(arr, "batch", "kvheads", "kv_seq_tp",
+                                    None)
+            elif name in ("xk", "xv"):
+                c[name] = constrain(arr, "batch", None, "kvheads", None)
+            else:
+                names = ["batch"] + [None] * (arr.ndim - 1)
+                if name in ("h", "C"):
+                    names[1] = "ssm_inner"
+                c[name] = constrain(arr, *names)
+        return c
+    return {"len": cache["len"],
+            "layers": [visit(blk) for blk in cache["layers"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -520,6 +618,42 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # Decode step
 # ---------------------------------------------------------------------------
 
+def _flash_decode_attention(q, kc, vc, cache_len):
+    """Flash-decoding over the cache's sequence shards: each rank of the
+    "model" axis computes a partial softmax over its slice of the keys of
+    its batch shard; the exact combine is three small all-reduces of
+    (num, den, max) over the "model" group, then the batch is gathered
+    over the batch axes. Without a mesh or a "model" axis, and at the
+    reference's three other gates, it is `attention.decode_attention`."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh_axes(mesh):
+        return attn.decode_attention(q, kc, vc, cache_len)
+    n_model = mesh_axes(mesh)["model"]
+    bax = _batch_axes(mesh, q)
+    S = kc.shape[2]
+    if S % n_model:
+        return attn.decode_attention(q, kc, vc, cache_len)
+    # gate: KV heads that fill the model axis shard the cache by head, not
+    # by sequence
+    if kc.shape[1] % n_model == 0:
+        return attn.decode_attention(q, kc, vc, cache_len)
+    # gate: at batch < DP degree the batch is not split over the data axes
+    if bax is None:
+        return attn.decode_attention(q, kc, vc, cache_len)
+    b_idx, b_n = _batch_coord(mesh, bax)
+    b = q.shape[0] // b_n
+    bs = slice(b_idx * b, (b_idx + 1) * b)
+    i = mesh.get_local_rank("model")
+    s_loc = S // n_model
+    ss = slice(i * s_loc, (i + 1) * s_loc)
+    pos = i * s_loc + torch.arange(s_loc, device=q.device)
+    valid = pos[None, :] < cache_len[bs, None]
+    num, den, m = attn.decode_attention_partial(
+        q[bs], kc[bs, :, ss], vc[bs, :, ss], valid)
+    out = combine_partial_softmax(num, den, m, mesh.get_group("model"))
+    return _gather_batch(out.to(q.dtype), mesh, bax)
+
+
 def _apply_block_decode(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
                         cache_j, positions, cache_len, qcfg):
     hd = cfg.resolved_head_dim
@@ -533,8 +667,9 @@ def _apply_block_decode(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
         k = attn.rotate(cfg.rope_kind, k, positions, cfg.rope_theta)
         kc, vc = attn.update_cache(cache_j["k"], cache_j["v"], k, v,
                                    cache_len)
-        o = attn.decode_attention(q, kc.to(x.dtype), vc.to(x.dtype),
-                                  cache_len + 1)
+        attend = (_flash_decode_attention if PERF.flash_decode
+                  else attn.decode_attention)
+        o = attend(q, kc.to(x.dtype), vc.to(x.dtype), cache_len + 1)
         x = x + linear(o.reshape(B, 1, cfg.num_heads * hd),
                        p["attn"]["wo"], qcfg)
         new_cache["k"], new_cache["v"] = kc, vc

@@ -110,20 +110,46 @@ def stored(q: torch.Tensor) -> torch.Tensor:
     return k_major(q) if q.dtype == torch.int8 and q.ndim == 2 else q
 
 
-def quantize_weight(w: torch.Tensor, mode: str):
-    """-> dict(q=storage tensor, scale=(..., 1, d_out) fp32). bf16 passes
-    through with scale None. An int8 matrix (2-D) is stored K-major."""
-    if mode == "bf16":
-        return {"q": w, "scale": None}
+def _quantized(w: torch.Tensor, mode: str):
+    """(codes, per-channel scale) of `w` in `mode`, the codes row-major."""
     if mode == "int8":
         scale = _per_channel_scale(w, 127.0)
         q = torch.clamp(torch.round(w.float() / scale), -127, 127)
-        return {"q": stored(q.to(torch.int8)), "scale": scale}
+        return q.to(torch.int8), scale
     if mode not in ("fp8", "fp8_native"):
         raise ValueError(f"unknown quant mode {mode!r}")
     # fp8 e4m3 (both fp8 modes store the same bytes): max normal 448
     scale = _per_channel_scale(w, 448.0)
-    return {"q": (w.float() / scale).to(torch.float8_e4m3fn), "scale": scale}
+    return (w.float() / scale).to(torch.float8_e4m3fn), scale
+
+
+# elements of a stack of matrices quantized at a time: fp32 temporaries of
+# 4 GiB each (llama4-maverick's experts, (128, 5120, 8192), would need 21.5
+# GB each at once, beside the layer's 32 GB of bf16 weights)
+QUANT_CHUNK = 2 ** 30
+
+
+def quantize_weight(w: torch.Tensor, mode: str):
+    """-> dict(q=storage tensor, scale=(..., 1, d_out) fp32). bf16 passes
+    through with scale None. An int8 matrix (2-D) is stored K-major; a
+    stack of matrices (MoE experts) row-major, quantized a few whole
+    matrices at a time (`QUANT_CHUNK`): the scales are per matrix, so the
+    values are those of the whole stack at once."""
+    if mode == "bf16":
+        return {"q": w, "scale": None}
+    if w.ndim <= 2:
+        q, scale = _quantized(w, mode)
+        return {"q": stored(q), "scale": scale}
+    mats = w.reshape(-1, *w.shape[-2:])
+    n = max(1, QUANT_CHUNK // mats[0].numel())
+    q = torch.empty(mats.shape, device=w.device,
+                    dtype=torch.int8 if mode == "int8"
+                    else torch.float8_e4m3fn)
+    scale = torch.empty((len(mats), 1, w.shape[-1]), device=w.device)
+    for i in range(0, len(mats), n):
+        q[i:i + n], scale[i:i + n] = _quantized(mats[i:i + n], mode)
+    return {"q": q.reshape(w.shape),
+            "scale": scale.reshape(*w.shape[:-2], 1, w.shape[-1])}
 
 
 def act_scale(xf: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ every leaf travels bit for bit: numpy holds bf16 as a 2-byte type named
 e4m3 as "float8_e4m3fn", viewed as uint8 and then as
 `torch.float8_e4m3fn`. Quantized weights (`{"q", "scale"}` dicts of
 `quantize_tree`), MoE blocks (experts `(R, E, d, f)`, router `(R, d,
-E)` fp32) and Mamba blocks (projections, `conv_w (R, di, k)`, and the
+E)` fp32, a shared expert's `moe/shared/{gate,up,down}`; with
+`interleave` 2 the unit holds a dense and a MoE position, so layer r * 2
++ j takes repeat r of position j) and Mamba blocks (projections, `conv_w (R, di, k)`, and the
 fp32 `A_log (R, di, N)`, `D (R, di)` and `dt_bias (R, di)`) are cut per
 layer like any other leaf; an int8 matrix that `linear` reads (2-D once
 cut) is then stored K-major, as `quant.quantize_weight` stores it

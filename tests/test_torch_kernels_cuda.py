@@ -203,10 +203,11 @@ def test_flash_kernel_matches_plain(gen, B, Sq, Sk, Hq, Hkv, D, causal):
 
 
 # (Hq, Hkv, D) of the served heads added for codeqwen1.5-7b,
-# nemotron-4-15b, granite-34b and granite-moe-1b-a400m, and qwen2-vl-7b's
-# G 7 (28 query heads on 4 KV heads)
+# nemotron-4-15b, granite-34b and granite-moe-1b-a400m, qwen2-vl-7b's G 7
+# (28 query heads on 4 KV heads) and llama4-maverick-400b-a17b's G 5 (40
+# on 8)
 NEW_HEADS = [(32, 32, 128), (48, 8, 128), (48, 1, 128), (16, 8, 64),
-             (28, 4, 128)]
+             (28, 4, 128), (40, 8, 128)]
 
 
 @pytest.mark.parametrize("Hq,Hkv,D", NEW_HEADS)
@@ -297,10 +298,11 @@ def test_flash_kernel_head_dim_64_kv_len_matches_plain(gen, lens):
     assert bf16_gate(out, ref) <= 1
 
 
-@pytest.mark.parametrize("Hq,Hkv", [(32, 32), (48, 8), (48, 1)])
+@pytest.mark.parametrize("Hq,Hkv", [(32, 32), (48, 8), (48, 1), (40, 8)])
 def test_flash_kernel_at_new_groups(gen, Hq, Hkv):
-    """Head_dim 128 at the groups of codeqwen1.5-7b (1), nemotron-4-15b (6)
-    and granite-34b (48), a served prefill of 8 x 512: the same kernel."""
+    """Head_dim 128 at the groups of codeqwen1.5-7b (1), nemotron-4-15b (6),
+    granite-34b (48) and llama4-maverick-400b-a17b (5), a served prefill
+    of 8 x 512: the same kernel."""
     q = _randn(gen, 8, 512, Hq, 128)
     k, v = _randn(gen, 8, 512, Hkv, 128), _randn(gen, 8, 512, Hkv, 128)
     out = flash_attention(q, k, v, causal=True)
@@ -439,8 +441,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError):
         paged_attention(_randn(gen, 1, 4, 128), kp, kp, bt.long(), lens)
-    with pytest.raises(ValueError):       # 5 query heads per KV head
-        paged_attention(_randn(gen, 1, 5, 128), kp, kp, bt, lens)
+    with pytest.raises(ValueError):       # 3 query heads per KV head
+        paged_attention(_randn(gen, 1, 3, 128), kp, kp, bt, lens)
     kp96 = _randn(gen, 4, 8, 1, 96)       # head_dim 96 is not compiled
     with pytest.raises(ValueError):
         paged_attention(_randn(gen, 1, 4, 96), kp96, kp96, bt, lens)
@@ -486,11 +488,13 @@ def test_int8_kernel_at_lm_head_shape(gen, M, K, N):
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 6144, 256000), (8, 6144, 128),
-                                   (8, 13440, 4096)])
+                                   (8, 13440, 4096), (8, 5120, 202048),
+                                   (8, 5120, 1024)])
 def test_int8_kernel_at_new_served_shapes(gen, M, K, N):
     """nemotron-4-15b's lm_head (vocab 256000, the widest N), granite-34b's
-    wk/wv at N 128 (one KV head) and codeqwen1.5-7b's down projection (K
-    13440) at decode: bit for bit."""
+    wk/wv at N 128 (one KV head), codeqwen1.5-7b's down projection (K
+    13440) and llama4-maverick-400b-a17b's lm_head (vocab 202048) and wk/wv
+    (N 1024) at decode: bit for bit."""
     args = _int8_inputs(gen, M, K, N)
     assert torch.equal(int8_matmul(*args), int8_matmul_ref(*args))
 

@@ -48,7 +48,7 @@ from repro_torch.weights import cache_from_jax, params_from_jax, to_torch
 
 B, S, STEPS = 2, 16, 3
 ARCHS = ["llama31-8b", "qwen3-30b-a3b", "jamba-v0.1-52b", "xlstm-350m",
-         "whisper-base", "qwen2-vl-7b"]
+         "whisper-base", "qwen2-vl-7b", "llama4-maverick-400b-a17b"]
 
 
 def _np(x):

@@ -101,23 +101,37 @@ def test_overflowing_expert_drops_the_same_tokens(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tied_router_breaks_ties_to_the_lower_expert(dtype):
+@pytest.mark.parametrize("k", [2, 1])
+def test_tied_router_breaks_ties_to_the_lower_expert(dtype, k):
     """A zero router makes every probability 1/E: `lax.top_k` picks
-    experts 0 and 1 for every token, and so must the port (`torch.topk`
-    is free to pick others). Expert 0 and 1 then overflow too."""
-    jcfg, jp = _params(dtype)
+    experts 0 and 1 (top-2), or expert 0 (top-1, llama4-maverick's
+    routing), for every token, and so must the port (`torch.topk` is free
+    to pick others). Those experts then overflow too."""
+    jcfg, jp = _params(dtype, top_k=k)
     jp = {**jp, "router": jnp.zeros_like(jp["router"])}
     x = np.random.default_rng(2).normal(size=(2, 16, D))
     _close(*_run(jcfg, jp, x, dtype), dtype)
-    vals, idx = tmoe.top_k(torch.full((3, 4), 0.25), 2)
-    assert idx.tolist() == [[0, 1]] * 3
+    vals, idx = tmoe.top_k(torch.full((3, 4), 0.25), k)
+    assert idx.tolist() == [list(range(k))] * 3
 
 
-def test_shared_expert():
-    jcfg, jp = _params("float32", shared_expert_ff=96)
+@pytest.mark.parametrize("k", [2, 1])
+def test_shared_expert(k):
+    """The always-on shared expert added to the routed ones, also under
+    llama4-maverick's top-1 routing. With the routed experts' down
+    projections zeroed, the output is the shared expert's alone, on both
+    sides."""
+    jcfg, jp = _params("float32", shared_expert_ff=96, top_k=k)
     assert "shared" in jp
     x = np.random.default_rng(3).normal(size=(2, 16, D))
     _close(*_run(jcfg, jp, x, "float32"), "float32")
+    jp = {**jp, "experts_down": jnp.zeros_like(jp["experts_down"])}
+    out, aux, ref, aux_r = _run(jcfg, jp, x, "float32")
+    _close(out, aux, ref, aux_r, "float32")
+    shared = tmoe.apply_mlp(_to_torch(jp["shared"]),
+                            torch.from_numpy(x).float(), "swiglu")
+    assert float(shared.abs().max()) > 0
+    torch.testing.assert_close(out, shared, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])

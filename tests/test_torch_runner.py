@@ -4,8 +4,8 @@ Both run `reduced(arch, vocab=1024)` on the same converted weights and
 the same numpy-drawn prompts, on the CPU (the port through its kernels'
 plain versions): llama31-8b, phi3-medium-14b, codeqwen1.5-7b,
 nemotron-4-15b and granite-34b (dense), qwen2-vl-7b (its text stack, with
-M-RoPE), qwen3-30b-a3b and
-granite-moe-1b-a400m (MoE) and the hybrid jamba-v0.1-52b (Mamba +
+M-RoPE), qwen3-30b-a3b, granite-moe-1b-a400m and llama4-maverick-400b-a17b
+(MoE; llama4's top-1 with a shared expert on every other layer) and the hybrid jamba-v0.1-52b (Mamba +
 attention + MoE, 8 layers), and llama31-8b, phi3-medium-14b, jamba and
 the three new dense models under int8; some also at their full config's
 query heads per KV head. The schedule admits three slots, decodes, admits the
@@ -223,14 +223,19 @@ def test_f32_tokens_identical():
                                         ("granite-34b", "bf16"),
                                         ("granite-34b", "int8"),
                                         ("qwen2-vl-7b", "bf16"),
-                                        ("qwen2-vl-7b", "int8")])
+                                        ("qwen2-vl-7b", "int8"),
+                                        ("llama4-maverick-400b-a17b", "bf16"),
+                                        ("llama4-maverick-400b-a17b",
+                                         "int8")])
 def test_f32_tokens_identical_moe_and_int8(arch, quant):
     """As above for the MoE model, the hybrid (7 Mamba layers, one
     attention layer, MoE on every second), phi3-medium-14b (dense, 4
     query heads a KV head), codeqwen1.5-7b (one query head a KV head),
     nemotron-4-15b (squared-ReLU MLP, layernorm), granite-34b (gelu
-    MLP, one KV head) and qwen2-vl-7b's text stack (M-RoPE over three equal
-    position rows in prefill and decode), and for int8 weight matrices under
+    MLP, one KV head), qwen2-vl-7b's text stack (M-RoPE over three equal
+    position rows in prefill and decode) and llama4-maverick-400b-a17b (a
+    dense layer, then a MoE layer of top-1 routing with a shared expert),
+    and for int8 weight matrices under
     `BY_NAME["int8"]` with f32 activations (the int8 products are exact on
     both sides)."""
     _tokens_identical(arch, quant)
@@ -242,6 +247,7 @@ def test_f32_tokens_identical_moe_and_int8(arch, quant):
     ("granite-moe-1b-a400m", (8, 4, 16)),    # G 2
     ("qwen2-vl-7b", (14, 2, 16)),            # G 7
     ("qwen2-vl-7b", (7, 1, 128)),            # G 7 at head_dim 128
+    ("llama4-maverick-400b-a17b", (10, 2, 16)),  # G 5
 ])
 def test_f32_tokens_identical_at_the_full_configs_group(arch, heads):
     """At the full config's query heads per KV head (`reduced` gives 4 or

@@ -177,6 +177,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.granite_moe_1b_a400m",
             "repro_torch.configs.whisper_base",
             "repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.configs.llama4_maverick_400b_a17b",
+            "repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.collectives",
+            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
             "repro_torch.models.attention", "repro_torch.models.model",
             "repro_torch.serving.fleet", "repro_torch.serving.fleet_jit",
             "repro_torch.serving.autoscale", "repro_torch.serving.precision",
@@ -241,8 +245,10 @@ def test_card_refuses_what_one_card_cannot_serve():
     """On an 80 GB card: mixtral-8x7b (46.7 B parameters) and
     jamba-v0.1-52b fit in int8 and fp8 but not in bf16; xlstm-350m serves
     in bf16 and in int8, whose kernel takes its sLSTM projections' K and N
-    of 1365; qwen2-vl-7b in bf16 and int8. Each refusal raises; nothing
-    falls back."""
+    of 1365; qwen2-vl-7b in bf16 and int8; llama4-maverick-400b-a17b
+    (397.7 B parameters) in no precision at its 48 layers, but its first
+    2 (one dense and one MoE layer, 18.55 B) in bf16 and int8. Each
+    refusal raises; nothing falls back."""
     card = 80 * 10 ** 9
     for arch in ("mixtral-8x7b", "jamba-v0.1-52b"):
         cfg = get_config(arch)
@@ -257,3 +263,12 @@ def test_card_refuses_what_one_card_cannot_serve():
         tserve.check_card(get_config("qwen2-vl-7b"), quant, card)
     for arch in ("llama31-8b", "qwen3-30b-a3b"):
         tserve.check_card(get_config(arch), "bf16", card)
+    l4 = get_config("llama4-maverick-400b-a17b")
+    for quant in ("bf16", "int8", "fp8"):
+        with pytest.raises(NotImplementedError, match="do not fit"):
+            tserve.check_card(l4, quant, card)
+    two = tserve.cut_depth(l4, 2)
+    assert round(l4.param_count() / 1e9, 1) == 397.7
+    assert round(two.param_count() / 1e9, 2) == 18.55
+    for quant in ("bf16", "int8"):
+        tserve.check_card(two, quant, card)

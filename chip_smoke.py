@@ -195,11 +195,29 @@ Phases, each of which exits non-zero on failure:
      `DeviceMesh`; the flash-decoding combine, the ring all-gather and a
      one-stage pipeline on CUDA tensors against their values without a
      group, and llama31-8b's `decode_step` (full width and depth) under
-     `shardctx` against the same steps without it: equal. Multi-rank
-     NCCL waits for a machine with more than one card (the multi-rank
-     parity runs on the CPU: `tests/test_torch_parallel.py`).
+     `shardctx` against the same steps without it: equal; then the
+     sharded checkpoint restore (`sharded_restore`): a narrow llama31-8b's
+     parameters and adamw8bit state restored with `shardings=`, every
+     leaf a DTensor on the card whose local tensor equals the plain
+     restore's bit for bit, and a corrupted newest step skipped by
+     `restore_latest`. Multi-rank NCCL waits for a machine with more than
+     one card (the multi-rank parity runs on the CPU:
+     `tests/test_torch_parallel.py`).
+ 11. dry-run (`dryrun_phase`): `launch.dryrun.run_cell` on fake process
+     groups in a child process (after phase 10, so that no timed phase
+     shares the host's cores with it; a fake group is process-wide):
+     whisper-base decode_32k on 256 and 512 ranks and llama31-8b
+     decode_32k on 256, on `h100-sxm`
+     (gates, `dryrun_gates`: status ok; argument bytes equal to
+     `launch.specs`' specs' shard bytes, which the planted fault, every
+     parameter replicated, must fail, and less the unread arguments
+     equal to the reference's record; FLOPs within a band of the
+     analytic count and collective bytes within a band of the
+     reference's), and the counters exact on the unit product; a
+     `{"dryrun": ...}` line with the card's name and power limit.
 Then `main_paths`, `contiguous_api`, `sim_tier`, `fleet`,
-`live_validation`, `training`, `parallel` and `kernels` JSON lines, the
+`live_validation`, `training`, `parallel`, `dryrun` and `kernels` JSON
+lines, the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {...}}`. Needs no network and imports no JAX.
 """
@@ -2619,6 +2637,233 @@ def restart_check():
     return out
 
 
+def sharded_restore(mesh):
+    """Phase 10's checkpoint restore by placements: a narrow llama31-8b's
+    bf16 parameters and adamw8bit state (codes drawn at random) saved at
+    step 1 and at step 2, whose arrays are then corrupted; step 1 restored
+    with `shardings` (`launch.specs`' placements on the host mesh, under
+    `shardctx`) and without. Every leaf must be a DTensor on the card whose
+    local tensor equals the plain restore's, bit for bit (bf16 through
+    uint16), and `restore_latest` must skip the corrupt step."""
+    import shutil
+    import tempfile
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import reduced
+    from repro_torch.launch import specs
+    from repro_torch.models import init_params
+    from repro_torch.parallel import shardctx
+    from repro_torch.training import CheckpointManager, adamw8bit
+    cfg = reduced("llama31-8b", vocab=1024, d_model=512, ff=1024)
+    params = init_params(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(5))
+    state = adamw8bit(1e-3).init(params)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for t in _tree_leaves(state):
+        if t.dtype == torch.int8:
+            t.random_(-127, 128, generator=gen)
+    tree = {"params": params, "opt": state}
+    shardings = {
+        "params": specs.placements_tree(
+            specs.param_shardings(cfg, params, mesh), mesh),
+        "opt": specs.placements_tree(specs.opt_shardings(cfg, state, mesh),
+                                     mesh)}
+    d = tempfile.mkdtemp(prefix="sharded_restore_")
+    try:
+        cm = CheckpointManager(d, keep=5, async_save=False)
+        cm.save(1, tree)
+        cm.save(2, tree)
+        with open(os.path.join(d, "step_000000002", "arrays.npz"),
+                  "r+b") as f:
+            f.seek(200)
+            f.write(b"\x00" * 64)
+        with shardctx(mesh):
+            got, _ = cm.restore(1, tree, shardings)
+            latest = cm.restore_latest(tree, shardings)
+        plain, _ = cm.restore(1, tree, device="cuda")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    def bits(t):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        return t.view(torch.uint16) if t.dtype == torch.bfloat16 else t
+
+    g, pl = _tree_leaves(got), _tree_leaves(plain)
+    out = {"leaves": len(g),
+           "dtensors on cuda": sum(isinstance(t, DTensor)
+                                   and t.device.type == "cuda" for t in g),
+           "locals equal": len(g) == len(pl) and all(
+               torch.equal(bits(a), bits(b)) for a, b in zip(g, pl)),
+           "latest step": latest[0],
+           "latest equal": all(torch.equal(bits(a), bits(b)) for a, b in
+                               zip(_tree_leaves(latest[1]), g))}
+    print(f"parallel: sharded restore {json.dumps(out)}", flush=True)
+    return out
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+# phase 11: the dry-run's cells (`launch.dryrun.run_cell`, on `h100-sxm`),
+# in a child process of their own: a fake process group is process-wide
+DRYRUN_CELLS = (("whisper-base", "decode_32k", False),
+                ("whisper-base", "decode_32k", True),
+                ("llama31-8b", "decode_32k", False))
+# the reference's records of DRYRUN_CELLS, hardware-independent
+# (`repro.launch.dryrun.run_cell` on the CPU, its production mesh rebuilt
+# with `AxisType.Auto` axes, JAX 0.9; `tests/test_torch_dryrun.py` makes
+# the whisper-base ones afresh): (argument bytes, collective bytes) a
+# device
+DRYRUN_REFERENCE = {("whisper-base", "16x16"): (438_238_272, 1_034_624),
+                    ("whisper-base", "2x16x16"): (263_846_944, 517_312),
+                    ("llama31-8b", "16x16"): (4_136_771_648, 20_316_288)}
+
+
+def dryrun_child():
+    """The dry-run phase's child (`chip_smoke.py --dryrun-child`; imports
+    no JAX and touches no card): the counters on the unit case, each of
+    DRYRUN_CELLS with its argument bytes from `launch.specs`' specs, and
+    the planted fault, DRYRUN_CELLS[0] with every parameter replicated.
+    Prints its results as one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(2)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+    out = {}
+    with dryrun.fake_mesh() as mesh:
+        fm = FakeTensorMode()
+        meta = lambda *s: torch.empty(s, dtype=torch.bfloat16,  # noqa: E731
+                                      device="meta")
+        x = dryrun.shard_like(meta(128, 4096), mesh,
+                              (Shard(0), Replicate()), fm)
+        w = dryrun.shard_like(meta(4096, 14336), mesh,
+                              (Replicate(), Shard(1)), fm)
+        c1, c2 = dryrun.OpCounter(), dryrun.OpCounter()
+        with fm, dryrun.counting(c1):
+            y = x @ w
+        with fm, dryrun.counting(c2):
+            y.redistribute(mesh, (Shard(0), Replicate()))
+        out["unit"] = {"flops": c1.flops, "all-gather": c2.collectives[
+            "all-gather"], "collectives": sum(c2.collectives.values()),
+            "local operand bytes": y.to_local().numel() * 2}
+
+    def want_bytes(arch, shape, multi_pod):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        _, args, sp, _ = specs.build_cell(get_config(arch),
+                                          SHAPES_BY_NAME[shape], mesh)
+        return specs.shard_bytes(args, sp, mesh)
+
+    out["cells"] = []
+    for arch, shape, mp in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=mp, hw="h100-sxm",
+                              save=False, verbose=False)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["want_argument_bytes"] = want_bytes(arch, shape, mp)
+        out["cells"].append(rec)
+    real = specs.param_shardings
+    specs.param_shardings = lambda cfg, p, mesh, fsdp="auto": \
+        specs._map2(lambda s, a, _: specs.P(), real(cfg, p, mesh, fsdp), p)
+    try:
+        arch, shape, mp = DRYRUN_CELLS[0]
+        out["fault"] = dryrun.run_cell(arch, shape, multi_pod=mp,
+                                       hw="h100-sxm", save=False,
+                                       verbose=False)
+    finally:
+        specs.param_shardings = real
+    print("DRYRUN " + json.dumps(out), flush=True)
+
+
+def start_dryrun():
+    """Start phase 11's child (about 30 s on the host's cores)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--dryrun-child"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), time.perf_counter()
+
+
+def dryrun_gates(rec, want_bytes):
+    """One record against the specs and the reference's record
+    (`DRYRUN_REFERENCE`): argument bytes those of `launch.specs`' specs,
+    and less the arguments no op read, XLA's (which drops unused
+    arguments); FLOPs a device within [0.9, 3.5] x the analytic count
+    (below 1 by the embedding lookup; whisper-base's head, whose 51,865
+    words do not divide the model axis, runs whole on each rank, and its
+    cross-attention is outside the analytic decode count); collective
+    bytes within [1/8, 1] x XLA's, all-reduces among them (the port
+    reduces bf16 partial sums where XLA reduces fp32 ones, and replicates
+    the heads that do not fill the model axis where XLA splits head_dim)."""
+    ref_args, ref_coll = DRYRUN_REFERENCE[(rec["arch"], rec["mesh"])]
+    mem, coll = rec["memory_analysis"], rec["collective_bytes"]
+    ratio = rec["cost_analysis"]["flops"] / rec["roofline"][
+        "flops_per_device"]
+    return {"argument bytes": mem["argument_size_in_bytes"] == want_bytes,
+            "read argument bytes = reference's": mem[
+                "argument_size_in_bytes"] - mem[
+                "unread_argument_size_in_bytes"] == ref_args,
+            "flops in [0.9, 3.5] x analytic": 0.9 <= ratio <= 3.5,
+            "collectives in [1/8, 1] x reference's":
+                ref_coll / 8 <= coll["total"] <= ref_coll
+                and coll["all-reduce"] > 0}
+
+
+def dryrun_phase(child, smi):
+    """Phase 11: the dry-run. The child's three cells must end ok on 256,
+    512 and 256 fake ranks and pass `dryrun_gates`; the planted fault (every
+    parameter replicated) must fail the argument-bytes gate; the counters
+    must be exact on the unit case (the local product's 58,720,256 FLOPs,
+    one all-gather of the local operand)."""
+    proc, t0 = child
+    so, se = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in so.splitlines() if ln.startswith("DRYRUN ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"dry-run phase: the child failed ({proc.returncode}): "
+             f"{so[-2000:]} {se[-4000:]}")
+    res = json.loads(lines[-1][len("DRYRUN "):])
+    cells, gates = [], []
+    for rec, n in zip(res["cells"], (256, 512, 256)):
+        g = dryrun_gates(rec, rec["want_argument_bytes"])
+        g["status ok"] = rec["status"] == "ok" and rec["n_devices"] == n
+        gates.append(g)
+        cells.append({
+            "cell": f"{rec['arch']} x {rec['shape']} x {rec['mesh']}",
+            "hw": rec["hw"], "n_devices": rec["n_devices"],
+            "flops": rec["cost_analysis"]["flops"],
+            "bytes accessed": rec["cost_analysis"]["bytes accessed"],
+            "collective_bytes": rec["collective_bytes"],
+            "memory_analysis": rec["memory_analysis"],
+            "bottleneck": rec["roofline"]["bottleneck"],
+            "roofline": {k: rec["roofline"][k] for k in (
+                "compute_s", "memory_s", "memory_analytic_s",
+                "collective_s", "roofline_frac")},
+            "wall_s": rec["wall_s"], "gates": g})
+    fault = dryrun_gates(res["fault"], res["cells"][0]["want_argument_bytes"])
+    unit = res["unit"]
+    out = {"cells": cells, "unit": unit,
+           "planted fault (parameters replicated)": {
+               "argument bytes": res["fault"]["memory_analysis"][
+                   "argument_size_in_bytes"],
+               "rejected": not fault["argument bytes"]},
+           "child_wall_s": wall, "card": smi}
+    print(f"dryrun: {json.dumps(out)}", flush=True)
+    if not (all(all(g.values()) for g in gates)
+            and out["planted fault (parameters replicated)"]["rejected"]
+            and unit["flops"] == 58_720_256
+            and unit["all-gather"] == unit["collectives"]
+            == unit["local operand bytes"]):
+        fail(f"dry-run phase: {out}")
+    return out
+
+
 def parallel_phase():
     """Phase 10: `repro_torch.parallel` and the mesh half of the model on
     CUDA tensors over a one-rank NCCL group (its store a `HashStore`: no
@@ -2707,6 +2952,7 @@ def parallel_phase():
                 ca["layers"], cb["layers"]) for n in ("k", "v")),
             "finite": all(bool(torch.isfinite(x).all()) for x in a)}
         del params, cache, sides, a, b, ca, cb
+        out["sharded restore"] = sharded_restore(mesh)
     finally:
         dist.destroy_process_group()
     out["multi-rank NCCL"] = ("not run: waits for a machine with more than "
@@ -2716,7 +2962,11 @@ def parallel_phase():
           "card; its parity runs on the CPU (tests/test_torch_parallel.py, "
           "4 gloo processes)", flush=True)
     d = out["llama31-8b decode_step"]
+    r = out["sharded restore"]
     if not (out["host_mesh"]["shape"] == [1, 1]
+            and r["dtensors on cuda"] == r["leaves"] > 0
+            and r["locals equal"] and r["latest step"] == 1
+            and r["latest equal"]
             and out["combine"]["equal to num / den"]
             and out["combine"]["max_abs_vs_decode_attention"] <= 2e-4
             and out["ring_equal"] and out["pipeline_equal"]
@@ -2726,6 +2976,8 @@ def parallel_phase():
 
 
 def main():
+    if sys.argv[1:] == ["--dryrun-child"]:
+        return dryrun_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2930,6 +3182,7 @@ def main():
     live = live_validation(kernels)
     print(f"live validation: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 11. the dry-run, in a child process on the host's cores meanwhile
     # 9. training on the card, every served model freed first
     phase("training")
     gc.collect()
@@ -2957,6 +3210,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     parallel = parallel_phase()
+    # 11. the dry-run, its child alone on the host's cores: no phase is
+    # timed beside it
+    phase("dry-run")
+    dry = dryrun_phase(start_dryrun(), smi)
     phase("done")
     print(json.dumps({"main_paths": paths}))
     print(json.dumps({"contiguous_api": contiguous}))
@@ -2967,6 +3224,7 @@ def main():
     print(json.dumps({"training": {"small_check": small, "full_width": full,
                                    "restart": restart}}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"dryrun": dry}))
 
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

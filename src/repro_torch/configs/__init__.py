@@ -39,18 +39,32 @@ from repro_torch.configs import (  # noqa: E402
     llama31_8b, llama4_maverick_400b_a17b, mixtral_8x7b, nemotron_4_15b,
     phi3_medium_14b, qwen2_vl_7b, qwen3_30b_a3b, whisper_base, xlstm_350m)
 
-_MODULES = (llama31_8b, qwen3_30b_a3b, jamba_v0_1_52b, mixtral_8x7b,
-            xlstm_350m, phi3_medium_14b, codeqwen1_5_7b, nemotron_4_15b,
-            granite_34b, granite_moe_1b_a400m, whisper_base, qwen2_vl_7b,
-            llama4_maverick_400b_a17b)
+_MODULES = (
+    whisper_base, jamba_v0_1_52b, granite_moe_1b_a400m,
+    llama4_maverick_400b_a17b, nemotron_4_15b, codeqwen1_5_7b,
+    phi3_medium_14b, granite_34b, qwen2_vl_7b, xlstm_350m,
+    llama31_8b, qwen3_30b_a3b, mixtral_8x7b,
+)
 
 _REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+
+ASSIGNED_ARCHS = (
+    "whisper-base", "jamba-v0.1-52b", "granite-moe-1b-a400m",
+    "llama4-maverick-400b-a17b", "nemotron-4-15b", "codeqwen1.5-7b",
+    "phi3-medium-14b", "granite-34b", "qwen2-vl-7b", "xlstm-350m",
+)
+PAPER_ARCHS = ("llama31-8b", "qwen3-30b-a3b", "mixtral-8x7b")
+ALL_ARCHS = ASSIGNED_ARCHS + PAPER_ARCHS
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs():
+    return list(_REGISTRY)
 
 
 def reduced(name: str, *, layers: int = 2, d_model: int = 64,
@@ -81,5 +95,6 @@ def reduced(name: str, *, layers: int = 2, d_model: int = 64,
 __all__ = [
     "ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig", "ShapeConfig",
     "ALL_SHAPES", "SHAPES_BY_NAME", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
-    "LONG_500K", "get_config", "reduced",
+    "LONG_500K", "ASSIGNED_ARCHS", "PAPER_ARCHS", "ALL_ARCHS",
+    "get_config", "list_archs", "reduced",
 ]

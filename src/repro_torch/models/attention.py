@@ -20,8 +20,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import dense_init
-from repro_torch.quant import linear
+from repro_torch.models.layers import dense_init, linear
+from repro_torch.parallel.sharding import (constrain, einsum, softmax,
+                                           split_last, unflatten, write_rows)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -106,10 +107,9 @@ def init_attention(d_model: int, n_q: int, n_kv: int, head_dim: int, *,
 
 
 def qkv(p, x: torch.Tensor, n_q: int, n_kv: int, head_dim: int, qcfg=None):
-    B, S, _ = x.shape
-    q = linear(x, p["wq"], qcfg).reshape(B, S, n_q, head_dim)
-    k = linear(x, p["wk"], qcfg).reshape(B, S, n_kv, head_dim)
-    v = linear(x, p["wv"], qcfg).reshape(B, S, n_kv, head_dim)
+    q = split_last(linear(x, p["wq"], qcfg), n_q, head_dim)
+    k = split_last(linear(x, p["wk"], qcfg), n_kv, head_dim)
+    v = split_last(linear(x, p["wv"], qcfg), n_kv, head_dim)
     return q, k, v
 
 
@@ -130,10 +130,10 @@ def _root(d: int, dtype) -> torch.Tensor:
 def _gqa_scores(q, k):
     """q: (B,Sq,Hq,D), k: (B,Sk,Hkv,D) -> scores (B,Hkv,G,Sq,Sk) in q's
     dtype."""
-    B, Sq, Hq, D = q.shape
+    Hq, D = q.shape[2], q.shape[3]
     Hkv = k.shape[2]
-    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
-    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / _root(D, q.dtype).to(
+    qg = unflatten(q, 2, (Hkv, Hq // Hkv))
+    return einsum("bqhgd,bkhd->bhgqk", qg, k) / _root(D, q.dtype).to(
         q.device)
 
 
@@ -142,7 +142,7 @@ def _softmax_pv(s, v, q):
     (B,Hkv,G,Sq,Sk) x (B,Sk,Hkv,D) -> (B,Sq,Hq,D)."""
     B, Sq, Hq, D = q.shape
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    o = einsum("bhgqk,bkhd->bqhgd", p, v)
     return o.reshape(B, Sq, Hq, D)
 
 
@@ -175,19 +175,21 @@ def causal_attention_chunked(q, k, v, *, block_q: int = 1024,
     block_q, block_k = min(block_q, S), min(block_k, S)
     assert S % block_q == 0 and S % block_k == 0
     scale = 1.0 / (D ** 0.5)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    qb = q.reshape(B, S // block_q, block_q, Hkv, G, D)
-    kb = k.reshape(B, S // block_k, block_k, Hkv, D)
-    vb = v.reshape(B, S // block_k, block_k, Hkv, D)
+    qb = unflatten(unflatten(q, 2, (Hkv, G)), 1, (S // block_q, block_q))
+    kb = unflatten(k, 1, (S // block_k, block_k))
+    vb = unflatten(v, 1, (S // block_k, block_k))
     outs = []
     for qi in range(S // block_q):
         rows = qi * block_q + torch.arange(block_q, device=q.device)
-        m = torch.full((B, Hkv, G, block_q, 1), NEG_INF, **f32)
-        l = torch.zeros((B, Hkv, G, block_q, 1), **f32)
-        acc = torch.zeros((B, Hkv, G, block_q, D), **f32)
+        # (B,Hkv,G,bq,D) like q's block, so a sharded q shards them too
+        acc = torch.zeros_like(qb[:, qi].permute(0, 2, 3, 1, 4),
+                               dtype=torch.float32,
+                               memory_format=torch.contiguous_format)
+        m = torch.full_like(acc[..., :1], NEG_INF)
+        l = torch.zeros_like(acc[..., :1])
         for ki in range(S // block_k):
             kblk, vblk = kb[:, ki], vb[:, ki]
-            s = (torch.einsum("bqhgd,bkhd->bhgqk", qb[:, qi], kblk)
+            s = (einsum("bqhgd,bkhd->bhgqk", qb[:, qi], kblk)
                  * scale).float()                        # (B,Hkv,G,bq,bk)
             cols = ki * block_k + torch.arange(block_k, device=q.device)
             s = torch.where(cols[None, :] <= rows[:, None], s, NEG_INF)
@@ -195,7 +197,7 @@ def causal_attention_chunked(q, k, v, *, block_q: int = 1024,
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum(
+            acc = acc * alpha + einsum(
                 "bhgqk,bkhd->bhgqd", p.to(vblk.dtype), vblk).float()
             m = m_new
         outs.append((acc / torch.clamp(l, min=1e-30)).to(q.dtype))
@@ -215,15 +217,15 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     written."""
     B, _, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bqhgd,bhkd->bhgqk", qg, k_cache) / _root(
+    qg = unflatten(q, 2, (Hkv, Hq // Hkv))
+    s = einsum("bqhgd,bhkd->bhgqk", qg, k_cache) / _root(
         D, q.dtype).to(q.device)
     s = s.float()                                        # (B,Hkv,G,1,S)
     mask = torch.arange(S, device=q.device)[None, :] < \
         cache_len.to(q.device)[:, None]                  # (B,S)
     s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhgqk,bhkd->bqhgd", p, v_cache)
+    p = softmax(s, dim=-1).to(q.dtype)
+    o = einsum("bhgqk,bhkd->bqhgd", p, v_cache)
     return o.reshape(B, 1, Hq, D)
 
 
@@ -235,15 +237,15 @@ def decode_attention_partial(q, k_cache, v_cache, valid_mask):
     holds no valid key), for an exact combine across shards."""
     B, _, Hq, D = q.shape
     Hkv = k_cache.shape[1]
-    qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bqhgd,bhkd->bhgqk", qg, k_cache) / _root(
+    qg = unflatten(q, 2, (Hkv, Hq // Hkv))
+    s = einsum("bqhgd,bhkd->bhgqk", qg, k_cache) / _root(
         D, q.dtype).to(q.device)
     s = s.float()                                        # (B,Hkv,G,1,S)
     s = torch.where(valid_mask[:, None, None, None, :], s, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
     e = torch.exp(s - m_safe) * torch.isfinite(s)
-    num = torch.einsum("bhgqk,bhkd->bqhgd", e.to(q.dtype), v_cache)
+    num = einsum("bhgqk,bhkd->bqhgd", e.to(q.dtype), v_cache)
     denom = e.sum(dim=-1, keepdim=True)                  # (B,Hkv,G,1,1)
     num = num.float().reshape(B, 1, Hq, D)
     denom = denom.permute(0, 3, 1, 2, 4).reshape(B, 1, Hq, 1)
@@ -254,13 +256,11 @@ def decode_attention_partial(q, k_cache, v_cache, valid_mask):
 
 def update_cache(k_cache, v_cache, k_new, v_new, index):
     """Write one decode step into (B,Hkv,S,D) caches at per-slot `index`
-    (B,); returns new caches, the given ones untouched."""
-    bidx = torch.arange(k_new.shape[0], device=k_cache.device)
+    (B,); returns new caches, the given ones untouched
+    (`parallel.sharding.write_rows`)."""
     index = index.long().to(k_cache.device)
-    k_cache, v_cache = k_cache.clone(), v_cache.clone()
-    k_cache[bidx, :, index] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, :, index] = v_new[:, 0].to(v_cache.dtype)
-    return k_cache, v_cache
+    return (write_rows(k_cache, k_new, index),
+            write_rows(v_cache, v_new, index))
 
 
 def fill_cache(k_cache, v_cache, k, v):
@@ -284,6 +284,7 @@ def cross_attention(p, x, enc_k, enc_v, n_q, n_kv, head_dim, qcfg=None,
     v)`: the attention without a mask, `bidirectional_attention` unless
     given (the prefill passes the flash op)."""
     B, Sq, _ = x.shape
-    q = linear(x, p["wq"], qcfg).reshape(B, Sq, n_q, head_dim)
+    q = split_last(linear(x, p["wq"], qcfg), n_q, head_dim)
     o = (attend or bidirectional_attention)(q, enc_k, enc_v)
+    o = constrain(o, "batch", "seq", "qheads", None)
     return linear(o.reshape(B, Sq, n_q * head_dim), p["wo"], qcfg)

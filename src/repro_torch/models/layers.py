@@ -2,16 +2,26 @@
 
 Counterpart of `repro.models.layers`. Parameters are plain dictionaries
 of tensors in the reference's layout; matmuls go through
-`repro_torch.quant.linear`.
+`linear` (`repro_torch.quant.linear`, a DTensor's contraction aligned
+first).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.quant import linear
+from repro_torch import quant
+from repro_torch.parallel.sharding import (align_contraction, constrain,
+                                           take_last)
 
 INIT_STD = 0.02
+
+
+def linear(x: torch.Tensor, w, qcfg=None) -> torch.Tensor:
+    """`quant.linear(x, w, qcfg)`, a DTensor x's contraction first aligned
+    to a weight sharded on it (`parallel.sharding.align_contraction`); a
+    plain x goes as it is."""
+    return quant.linear(align_contraction(x, w), w, qcfg)
 
 
 def dense_init(d_in: int, d_out: int, *, device, generator: torch.Generator,
@@ -85,8 +95,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     tokens it keeps (at least one)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - ll
+    ll = take_last(logits, labels.long())
+    # held to the batch's sharding, the gradient too: the mean's backward
+    # would otherwise hand every rank the whole batch's gradient
+    nll = constrain(logz - ll, "batch", "seq")
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -35,11 +35,12 @@ The mesh half follows the reference's `shard_map` contract literally:
 replicated in, replicated out, the work split inside. Under
 `parallel.shardctx(mesh)` with a `DeviceMesh`, every rank calls the same
 function on the whole of its inputs; `_flash_decode_attention` takes its
-batch shard and its sequence shard of the cache, combines the partial
-softmaxes over the "model" axis' group and gathers the batch over the
-batch axes' groups, and `_local_batch_shard_map` (`PERF.local_recurrence`)
-runs a recurrent block on its batch shard and gathers its outputs. Each
-falls back to the plain function exactly where the reference does.
+batch shard and its sequence shard of the cache and combines the partial
+softmaxes over the "model" axis' group, and `_local_batch_shard_map`
+(`PERF.local_recurrence`) runs a recurrent block on its batch shard.
+Both are `parallel.sharding.local_region`s, which gather the outputs
+whole for plain inputs and keep them split for DTensors (the dry-run).
+Each falls back to the plain function exactly where the reference does.
 `constrain` and `constrain_cache` sit at the reference's places; they
 change only a DTensor's placements (`parallel.sharding.constrain`).
 """
@@ -50,7 +51,6 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -62,13 +62,15 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, cross_entropy_loss, dense_init, embed_init,
-    init_mlp, init_norm, softcap)
+    init_mlp, init_norm, linear, softcap)
 from repro_torch.parallel.collectives import combine_partial_softmax
 from repro_torch.parallel.sharding import (
-    constrain, current_mesh, logical_spec, mesh_axes)
-from repro_torch.quant import linear, quantize_tree
+    by_axes, constrain, current_mesh, is_dtensor, local_region, logical_spec,
+    mesh_axes, split_last)
+from repro_torch.quant import quantize_tree
 
 MAX_POS = 32768          # learned-position table size (whisper)
+VLM_PATCHES = 256        # stubbed patch count for vlm input cells
 AUX_LOSS_COEF = 0.01
 
 
@@ -236,6 +238,15 @@ def _positions(cfg: ModelConfig, batch: int, seq: int, offset=None,
     return base
 
 
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y, the sum held to the residual stream's sharding (the names
+    the reference constrains it to after each block). Under a mesh the
+    sub-layer's output otherwise keeps whatever layout DTensor chose for
+    its last product, such as a sequence split over the model axis that a
+    later flatten cannot take."""
+    return constrain(x + y, "batch", "seq", "d_model")
+
+
 def _apply_ff_aux(p, cfg: ModelConfig, x: torch.Tensor, is_moe: bool,
                   qcfg=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The feed-forward half of a block: (x, the MoE aux loss, fp32, 0
@@ -244,10 +255,10 @@ def _apply_ff_aux(p, cfg: ModelConfig, x: torch.Tensor, is_moe: bool,
     if is_moe and "moe" in p:
         h = apply_norm(p["ln2"], x, cfg.norm_kind)
         mo, aux = moe_lib.apply_moe(p["moe"], h, cfg.moe, cfg.mlp_kind, qcfg)
-        x = x + mo
+        x = _residual(x, mo)
     elif "mlp" in p:
         h = apply_norm(p["ln2"], x, cfg.norm_kind)
-        x = x + apply_mlp(p["mlp"], h, cfg.mlp_kind, qcfg)
+        x = _residual(x, apply_mlp(p["mlp"], h, cfg.mlp_kind, qcfg))
     return x, aux
 
 
@@ -262,8 +273,19 @@ def _layer_kinds(cfg: ModelConfig):
     return list(zip(cfg.block_pattern(), cfg.moe_layer_mask()))
 
 
+def _flash(q, k, v, causal: bool = True):
+    """The flash op. A DTensor q (the dry-run's) takes the same attention
+    in the model's own functions (`attention.causal_attention`,
+    `bidirectional_attention`: the full rectangle, as the op's plain
+    version computes it), whose head split a sharded q can take."""
+    if is_dtensor(q):
+        return (attn.causal_attention if causal
+                else attn.bidirectional_attention)(q, k, v)
+    return flash_attention(q, k, v, causal=causal)
+
+
 def _bidirectional_flash(q, k, v):
-    return flash_attention(q, k, v, causal=False)
+    return _flash(q, k, v, causal=False)
 
 
 # ---------------------------------------------------------------------------
@@ -285,12 +307,14 @@ def _apply_attn_block(p, cfg: ModelConfig, x, positions, qcfg,
     k = constrain(k, "batch", "seq", "kvheads", None)
     v = constrain(v, "batch", "seq", "kvheads", None)
     if flash:
-        o = flash_attention(q, k, v, causal=True)
+        o = _flash(q, k, v)
     elif S > attn.CHUNKED_THRESHOLD:
         o = attn.causal_attention_chunked(q, k, v)
     else:
         o = attn.causal_attention(q, k, v)
-    x = x + linear(o.reshape(B, S, cfg.num_heads * hd), p["attn"]["wo"], qcfg)
+    o = constrain(o, "batch", "seq", "qheads", None)
+    x = _residual(x, linear(o.reshape(B, S, cfg.num_heads * hd),
+                            p["attn"]["wo"], qcfg))
     cache = None
     if make_cache:
         kv_dt = PERF.kv_cache_dtype
@@ -298,35 +322,11 @@ def _apply_attn_block(p, cfg: ModelConfig, x, positions, qcfg,
                  "v": v.transpose(1, 2).to(kv_dt).contiguous()}
     if enc_kv is not None:
         h = apply_norm(p["ln_x"], x, cfg.norm_kind)
-        x = x + attn.cross_attention(
+        x = _residual(x, attn.cross_attention(
             p["xattn"], h, enc_kv["xk"], enc_kv["xv"], cfg.num_heads,
             cfg.num_kv_heads, hd, qcfg,
-            attend=_bidirectional_flash if flash else None)
+            attend=_bidirectional_flash if flash else None))
     return x, cache
-
-
-def _batch_coord(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
-    """This rank's index along the batch axes `axes` of a `DeviceMesh`
-    (the first axis major, as a spec entry orders them) and their size."""
-    if not hasattr(mesh, "get_local_rank"):
-        raise TypeError("a sharded region needs a DeviceMesh; an abstract "
-                        "mesh has no ranks")
-    sizes = mesh_axes(mesh)
-    idx = 0
-    for a in axes:
-        idx = idx * sizes[a] + mesh.get_local_rank(a)
-    return idx, math.prod(sizes[a] for a in axes)
-
-
-def _gather_batch(t: torch.Tensor, mesh, axes: Tuple[str, ...]
-                  ) -> torch.Tensor:
-    """All-gather the batch shards along dim 0, over the last of `axes`
-    first, so the shards land in `_batch_coord` order."""
-    for a in reversed(axes):
-        parts = [torch.empty_like(t) for _ in range(mesh_axes(mesh)[a])]
-        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
-        t = torch.cat(parts, 0)
-    return t
 
 
 def _batch_axes(mesh, x) -> Optional[Tuple[str, ...]]:
@@ -338,11 +338,29 @@ def _batch_axes(mesh, x) -> Optional[Tuple[str, ...]]:
     return (bax,) if isinstance(bax, str) else bax
 
 
+def _batch_region(fn, mesh, bax, p, x, *state):
+    """`fn(p, x, *state)` on this rank's batch shard (`local_region`):
+    the params replicated, x and the `state` trees (batch-major) split by
+    batch over the mesh axes `bax`, and every output whose leading dim is
+    the shard's batch split the same way (the rest replicated)."""
+    rep = by_axes(mesh, {})
+    by_batch = by_axes(mesh, {a: 0 for a in bax})
+    b = x.shape[0] // math.prod(mesh_axes(mesh)[a] for a in bax)
+
+    def out(t):
+        if t.ndim and t.shape[0] == b:
+            return by_batch, (x.shape[0],) + tuple(t.shape[1:])
+        return rep, tuple(t.shape)
+
+    return local_region(fn, mesh, (p, x) + state,
+                        (rep, by_batch) + (by_batch,) * len(state), out)
+
+
 def _local_batch_shard_map(fn, p, x):
     """Run a recurrent block on this rank's batch shard with replicated
-    params, then gather every output whose leading dim is the shard's
-    batch (the blocks' outputs and states are all batch-major): the
-    time-loop recurrence stays local to the rank."""
+    params (`_batch_region`): the time-loop recurrence stays local to the
+    rank, and the outputs (all batch-major) come back whole, or, for a
+    DTensor x, split by batch."""
     mesh = current_mesh()
     if mesh is None:
         return fn(p, x)
@@ -350,19 +368,16 @@ def _local_batch_shard_map(fn, p, x):
     if bax is None:
         # gate: batch smaller than the DP degree cannot be split
         return fn(p, x)
-    idx, n = _batch_coord(mesh, bax)
-    b = x.shape[0] // n
+    return _batch_region(fn, mesh, bax, p, x)
 
-    def gather(t):
-        if isinstance(t, dict):
-            return {k: gather(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(gather(v) for v in t)
-        if t.ndim and t.shape[0] == b:
-            return _gather_batch(t, mesh, bax)
-        return t
 
-    return gather(fn(p, x[idx * b:(idx + 1) * b]))
+def _batch_local(fn, p, x, *state):
+    """An xLSTM block (no work across the batch; the rules replicate its
+    parameters) on a DTensor x, run on the local batch shards (the whole
+    batch where the rules leave it unsplit), as DTensor would run it had
+    it a rule for each of its ops (it has none for `log_sigmoid`)."""
+    mesh = x.device_mesh
+    return _batch_region(fn, mesh, _batch_axes(mesh, x) or (), p, x, *state)
 
 
 def _apply_block_seq(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
@@ -384,8 +399,12 @@ def _apply_block_seq(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
         else:
             fn = lambda p_, h_: xlstm_lib.slstm_seq(p_, h_, cfg.xlstm, None,
                                                     qcfg)
-        y, state = (_local_batch_shard_map(fn, p, h)
-                    if PERF.local_recurrence else fn(p, h))
+        if PERF.local_recurrence:
+            y, state = _local_batch_shard_map(fn, p, h)
+        elif kind != "mamba" and is_dtensor(h):
+            y, state = _batch_local(fn, p, h)
+        else:
+            y, state = fn(p, h)
         x = x + y
         if make_cache:
             cache = state
@@ -410,9 +429,9 @@ def _stack_forward(params, cfg: ModelConfig, x, positions, qcfg,
             # cross-attention K/V from the encoder output, this layer's
             # weights
             Bz, Se, _ = enc_out.shape
-            enc_kv = {n: linear(enc_out, p["xattn"][w], qcfg).reshape(
-                Bz, Se, cfg.num_kv_heads, hd)
-                for n, w in (("xk", "wk"), ("xv", "wv"))}
+            enc_kv = {n: split_last(linear(enc_out, p["xattn"][w], qcfg),
+                                    cfg.num_kv_heads, hd)
+                      for n, w in (("xk", "wk"), ("xv", "wv"))}
 
         def run(x, p=p, kind=kind, is_moe=is_moe, enc_kv=enc_kv):
             return _apply_block_seq(p, cfg, kind, is_moe, x, positions,
@@ -447,11 +466,11 @@ def encode(params, cfg: ModelConfig, frames, qcfg=None, *, flash=True):
         h = apply_norm(p["ln1"], x, cfg.norm_kind)
         q, k, v = attn.qkv(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
                            hd, qcfg)
-        o = attend(q, k, v)
-        x = x + linear(o.reshape(B, Se, cfg.num_heads * hd),
-                       p["attn"]["wo"], qcfg)
+        o = constrain(attend(q, k, v), "batch", "seq", "qheads", None)
+        x = _residual(x, linear(o.reshape(B, Se, cfg.num_heads * hd),
+                                p["attn"]["wo"], qcfg))
         h = apply_norm(p["ln2"], x, cfg.norm_kind)
-        x = x + apply_mlp(p["mlp"], h, cfg.mlp_kind, qcfg)
+        x = _residual(x, apply_mlp(p["mlp"], h, cfg.mlp_kind, qcfg))
     return apply_norm(params["enc_final_norm"], x, cfg.norm_kind)
 
 
@@ -619,12 +638,13 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _flash_decode_attention(q, kc, vc, cache_len):
-    """Flash-decoding over the cache's sequence shards: each rank of the
-    "model" axis computes a partial softmax over its slice of the keys of
-    its batch shard; the exact combine is three small all-reduces of
-    (num, den, max) over the "model" group, then the batch is gathered
-    over the batch axes. Without a mesh or a "model" axis, and at the
-    reference's three other gates, it is `attention.decode_attention`."""
+    """Flash-decoding over the cache's sequence shards (`local_region`):
+    each rank of the "model" axis computes a partial softmax over its
+    slice of the keys of its batch shard; the exact combine is three
+    small all-reduces of (num, den, max) over the "model" group, and the
+    output is split by batch (gathered whole for plain inputs). Without a
+    mesh or a "model" axis, and at the reference's three other gates, it
+    is `attention.decode_attention`."""
     mesh = current_mesh()
     if mesh is None or "model" not in mesh_axes(mesh):
         return attn.decode_attention(q, kc, vc, cache_len)
@@ -640,18 +660,21 @@ def _flash_decode_attention(q, kc, vc, cache_len):
     # gate: at batch < DP degree the batch is not split over the data axes
     if bax is None:
         return attn.decode_attention(q, kc, vc, cache_len)
-    b_idx, b_n = _batch_coord(mesh, bax)
-    b = q.shape[0] // b_n
-    bs = slice(b_idx * b, (b_idx + 1) * b)
-    i = mesh.get_local_rank("model")
-    s_loc = S // n_model
-    ss = slice(i * s_loc, (i + 1) * s_loc)
-    pos = i * s_loc + torch.arange(s_loc, device=q.device)
-    valid = pos[None, :] < cache_len[bs, None]
-    num, den, m = attn.decode_attention_partial(
-        q[bs], kc[bs, :, ss], vc[bs, :, ss], valid)
-    out = combine_partial_softmax(num, den, m, mesh.get_group("model"))
-    return _gather_batch(out.to(q.dtype), mesh, bax)
+    by_batch = by_axes(mesh, {a: 0 for a in bax})
+    by_seq = by_axes(mesh, {**{a: 0 for a in bax}, "model": 2})
+
+    def partial(q_l, cl_l, kc_l, vc_l):
+        s_loc = kc_l.shape[2]
+        pos = mesh.get_local_rank("model") * s_loc + torch.arange(
+            s_loc, device=q_l.device)
+        valid = pos[None, :] < cl_l[:, None]
+        num, den, m = attn.decode_attention_partial(q_l, kc_l, vc_l, valid)
+        out = combine_partial_softmax(num, den, m, mesh.get_group("model"))
+        return out.to(q_l.dtype)
+
+    return local_region(partial, mesh, (q, cache_len, kc, vc),
+                        (by_batch, by_batch, by_seq, by_seq),
+                        lambda t: (by_batch, tuple(q.shape)))
 
 
 def _apply_block_decode(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
@@ -670,25 +693,28 @@ def _apply_block_decode(p, cfg: ModelConfig, kind: str, is_moe: bool, x,
         attend = (_flash_decode_attention if PERF.flash_decode
                   else attn.decode_attention)
         o = attend(q, kc.to(x.dtype), vc.to(x.dtype), cache_len + 1)
-        x = x + linear(o.reshape(B, 1, cfg.num_heads * hd),
-                       p["attn"]["wo"], qcfg)
+        x = _residual(x, linear(o.reshape(B, 1, cfg.num_heads * hd),
+                                p["attn"]["wo"], qcfg))
         new_cache["k"], new_cache["v"] = kc, vc
         if "xk" in cache_j:
             h = apply_norm(p["ln_x"], x, cfg.norm_kind)
-            x = x + attn.cross_attention(
+            x = _residual(x, attn.cross_attention(
                 p["xattn"], h, cache_j["xk"].to(x.dtype),
                 cache_j["xv"].to(x.dtype), cfg.num_heads, cfg.num_kv_heads,
-                hd, qcfg)
+                hd, qcfg))
     else:
         if kind == "mamba":
             y, new_cache = ssm_lib.mamba_decode_step(p["mamba"], h, cache_j,
                                                      cfg.ssm, qcfg)
-        elif kind == "mlstm":
-            y, new_cache = xlstm_lib.mlstm_seq(p, h, cfg.num_heads,
-                                               cfg.xlstm, cache_j, qcfg)
         else:
-            y, new_cache = xlstm_lib.slstm_seq(p, h, cfg.xlstm, cache_j,
-                                               qcfg)
+            if kind == "mlstm":
+                fn = lambda p_, h_, c_: xlstm_lib.mlstm_seq(  # noqa: E731
+                    p_, h_, cfg.num_heads, cfg.xlstm, c_, qcfg)
+            else:
+                fn = lambda p_, h_, c_: xlstm_lib.slstm_seq(  # noqa: E731
+                    p_, h_, cfg.xlstm, c_, qcfg)
+            y, new_cache = (_batch_local(fn, p, h, cache_j)
+                            if is_dtensor(h) else fn(p, h, cache_j))
         x = x + y
     return _apply_ff(p, cfg, x, is_moe, qcfg), new_cache
 
@@ -702,7 +728,10 @@ def decode_step(params, cfg: ModelConfig, token, cache, qcfg=None):
     cache_len = cache["len"]
     x = embed_tokens(params, cfg, token)
     if "pos_embed" in params:
-        pos = params["pos_embed"][cache_len.long().clamp(0, MAX_POS - 1)]
+        # a lookup (the rows `pos_embed[i]`), which DTensor shards by the
+        # batch of its ids where its indexing refuses to
+        pos = F.embedding(cache_len.long().clamp(0, MAX_POS - 1),
+                          params["pos_embed"])
         x = x + pos[:, None].to(x.dtype)
     positions = _positions(cfg, B, 1, offset=cache_len, device=x.device)
     layers = []

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import INIT_STD, apply_mlp, init_mlp
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, is_dtensor, local_region
 from repro_torch.quant import dequantize
 
 
@@ -81,6 +81,51 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _route(xg, router, E: int, K: int, cap: int):
+    """Routing of token groups xg (G, Sg, d): the router's probabilities
+    (G, Sg, E), the one-hot of each token's first expert (G, Sg, E, fp32),
+    and the dispatch and combine tensors (G, Sg, E, cap), fp32."""
+    G, Sg, _ = xg.shape
+    logits = torch.einsum("gsd,de->gse", xg.float(), router)
+    probs = torch.softmax(logits, dim=-1)                       # (G,Sg,E)
+    gate_vals, gate_idx = top_k(probs, K)                       # (G,Sg,K)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    first = F.one_hot(gate_idx[..., 0], E).float()
+
+    # position of each (token, k) assignment within its expert's queue
+    onehot = F.one_hot(gate_idx, E)                             # (G,Sg,K,E)
+    pos = torch.cumsum(onehot.reshape(G, Sg * K, E), dim=1) - 1
+    pos = torch.gather(pos.reshape(G, Sg, K, E), 3,
+                       gate_idx[..., None]).squeeze(-1)         # (G,Sg,K)
+    keep = (pos < cap).float()
+    cell = ((torch.arange(G * Sg, device=xg.device).reshape(G, Sg, 1) * E
+             + gate_idx) * cap + pos.clamp(0, cap - 1)).reshape(-1)
+    dispatch_t = torch.zeros(G * Sg * E * cap, device=xg.device)
+    dispatch_t.scatter_add_(0, cell, keep.reshape(-1))
+    combine_t = torch.zeros(G * Sg * E * cap, device=xg.device)
+    combine_t.scatter_add_(0, cell, (keep * gate_vals).reshape(-1))
+    return (probs, first, dispatch_t.reshape(G, Sg, E, cap),
+            combine_t.reshape(G, Sg, E, cap))
+
+
+def _route_sharded(xg, router, E: int, K: int, cap: int):
+    """`_route` on a DTensor xg, group by group (`local_region`): every
+    group's routing is its own, so each rank routes the groups it holds
+    (xg split by groups only, the router replicated: the redistributions
+    to get there are the only collectives), and each result is split the
+    same way. DTensor has no sharding rule for the routing's
+    scatter-adds."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = xg.device_mesh
+    by_group = tuple(p if isinstance(p, Shard) and p.dim == 0
+                     else Replicate() for p in xg.placements)
+    G = xg.shape[0]
+    return local_region(lambda xl, rl: _route(xl, rl, E, K, cap), mesh,
+                        (xg, router), (by_group, (Replicate(),) * mesh.ndim),
+                        lambda t: (by_group, (G,) + tuple(t.shape[1:])))
+
+
 def apply_moe(p, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
               qcfg=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).
@@ -98,30 +143,12 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
     cap = max(K, int(math.ceil(Sg * K / E * cfg.capacity_factor)))
 
     xg = x.reshape(G, Sg, d)
-    logits = torch.einsum("gsd,de->gse", xg.float(), p["router"])
-    probs = torch.softmax(logits, dim=-1)                       # (G,Sg,E)
-    gate_vals, gate_idx = top_k(probs, K)                       # (G,Sg,K)
-    gate_vals = gate_vals / torch.clamp(
-        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    route = _route_sharded if is_dtensor(xg) else _route
+    probs, first, dispatch_t, combine_t = route(xg, p["router"], E, K, cap)
 
     # Load-balancing aux loss (Switch-style): E * mean(frac_tokens * mean_prob)
-    frac = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
+    frac = first.mean(dim=(0, 1))
     aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
-
-    # position of each (token, k) assignment within its expert's queue
-    onehot = F.one_hot(gate_idx, E)                             # (G,Sg,K,E)
-    pos = torch.cumsum(onehot.reshape(G, Sg * K, E), dim=1) - 1
-    pos = torch.gather(pos.reshape(G, Sg, K, E), 3,
-                       gate_idx[..., None]).squeeze(-1)         # (G,Sg,K)
-    keep = (pos < cap).float()
-    cell = ((torch.arange(G * Sg, device=x.device).reshape(G, Sg, 1) * E
-             + gate_idx) * cap + pos.clamp(0, cap - 1)).reshape(-1)
-    dispatch_t = torch.zeros(G * Sg * E * cap, device=x.device)
-    dispatch_t.scatter_add_(0, cell, keep.reshape(-1))
-    combine_t = torch.zeros(G * Sg * E * cap, device=x.device)
-    combine_t.scatter_add_(0, cell, (keep * gate_vals).reshape(-1))
-    dispatch_t = dispatch_t.reshape(G, Sg, E, cap)
-    combine_t = combine_t.reshape(G, Sg, E, cap)
 
     cdt = x.dtype
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch_t.to(cdt), xg)
@@ -134,7 +161,18 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
     out_e = torch.einsum("egcf,efd->egcd", h, _w(p["experts_down"], cdt))
     out_e = constrain(out_e, "experts", "batch", None, None)
 
-    out = torch.einsum("gsec,egcd->gsd", combine_t.to(cdt), out_e)
+    if is_dtensor(out_e):
+        # (expert, slot) flattened with the expert outer: DTensor's product
+        # takes the experts' split on the contracted dim as it is (partial
+        # sums, then a reduction), where einsum's own flattening makes a
+        # strided split that it refuses. Not the plain path's form: on a
+        # plain tensor it sums in another order, and so is not bit for bit
+        E_, G_, C_ = out_e.shape[:3]
+        out = torch.einsum(
+            "gsk,gkd->gsd", combine_t.to(cdt).flatten(2, 3),
+            out_e.permute(1, 0, 2, 3).reshape(G_, E_ * C_, d))
+    else:
+        out = torch.einsum("gsec,egcd->gsd", combine_t.to(cdt), out_e)
     out = out.reshape(B, S, d)
     if "shared" in p:
         out = out + apply_mlp(p["shared"], x, mlp_kind, qcfg)

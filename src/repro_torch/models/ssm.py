@@ -20,8 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
-from repro_torch.models.layers import dense_init
-from repro_torch.quant import dequantize, linear
+from repro_torch.models.layers import dense_init, linear
+from repro_torch.quant import dequantize
 
 
 def _dims(d_model: int, cfg: SSMConfig) -> Tuple[int, int]:

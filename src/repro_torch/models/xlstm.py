@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
-from repro_torch.models.layers import apply_norm, dense_init, init_norm
-from repro_torch.quant import dequantize, linear
+from repro_torch.models.layers import (apply_norm, dense_init, init_norm,
+                                      linear)
+from repro_torch.quant import dequantize
 
 # ---------------------------------------------------------------------------
 # mLSTM

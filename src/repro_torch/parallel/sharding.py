@@ -63,7 +63,7 @@ def mesh_axes(mesh) -> Dict[str, int]:
     """Axis name -> size of an `AbstractMesh` or a `DeviceMesh`."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:               # a DeviceMesh
-        return dict(zip(names, mesh.mesh.shape))
+        return dict(zip(names, mesh.shape))
     return dict(mesh.shape)
 
 
@@ -178,10 +178,252 @@ def constrain(x, *names: Optional[str]):
     """The sharding constraint by logical names: identity with no mesh or
     on a plain tensor; a DTensor is redistributed to the resolved
     placements (its values unchanged)."""
-    if current_mesh() is None or not hasattr(x, "redistribute"):
+    if current_mesh() is None or not is_dtensor(x):
         return x
     spec = logical_spec(x.shape, names, x.device_mesh)
     return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+# ---------------------------------------------------------------------------
+# DTensor: what it refuses that GSPMD does without a word, in one place.
+# Each helper is the plain op on a plain tensor.
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    """Whether `x` is a DTensor (the dry-run's arguments, a sharded
+    restore's leaves)."""
+    return hasattr(x, "placements")
+
+
+def _split_on(x, dim: int) -> bool:
+    """Whether `x` is a DTensor sharded along `dim`."""
+    from torch.distributed.tensor import Shard
+    dim = dim % x.ndim
+    return is_dtensor(x) and any(
+        isinstance(p, Shard) and p.dim == dim for p in x.placements)
+
+
+def by_axes(mesh, dims: Dict[str, int]):
+    """DTensor placements on a `DeviceMesh` from {mesh axis name: tensor
+    dim}: `Shard(dim)` on the named axes, `Replicate()` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[a]) if a in dims else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def contiguous_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape` (a DTensor's global
+    strides, for `DTensor.from_local(..., shape=, stride=)`), computed
+    without making a tensor: inside a counted dry-run a meta tensor would
+    be one more op."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _tree_map(fn, t):
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_tree_map(fn, v) for v in t)
+    return t if t is None else fn(t)
+
+
+def _tree_leaves(t):
+    if isinstance(t, dict):
+        return [x for v in t.values() for x in _tree_leaves(v)]
+    if isinstance(t, (list, tuple)):
+        return [x for v in t for x in _tree_leaves(v)]
+    return [] if t is None else [t]
+
+
+def local_region(fn, mesh, args, arg_placements, out_placements):
+    """A `shard_map` region: `fn(*local args)` on this rank's shards.
+    Every tensor of the tree `args[i]` is taken at `arg_placements[i]`;
+    each output tensor t comes back as a DTensor at `out_placements(t)`,
+    a pair (placements, global shape). A DTensor argument is
+    redistributed to its placements (the region's input collectives). A
+    plain one is the same on every rank and is sliced to its shard with
+    no communication; when every argument is plain the outputs are then
+    gathered whole (`full_tensor`): the reference's contract of
+    replicated in, replicated out."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    if not hasattr(mesh, "get_local_rank"):
+        raise TypeError("a sharded region needs a DeviceMesh; an abstract "
+                        "mesh has no ranks")
+    rep = (Replicate(),) * mesh.ndim
+    plain = not any(is_dtensor(t) for t in _tree_leaves(args))
+
+    def local(t, pl):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+
+    def wrap(t):
+        pl, shape = out_placements(t)
+        d = DTensor.from_local(t, mesh, pl, run_check=False,
+                               shape=torch.Size(shape),
+                               stride=contiguous_strides(shape))
+        return d.full_tensor() if plain else d
+
+    locs = [_tree_map(lambda t, pl=pl: local(t, pl), a)
+            for a, pl in zip(args, arg_placements)]
+    return _tree_map(wrap, fn(*locs))
+
+
+def unflatten(x, dim: int, sizes: Sequence[int]):
+    """`x.unflatten(dim, sizes)`: one dimension split into several (the
+    head split of a fused projection, heads into (KV heads, group), a
+    sequence into blocks). On a DTensor whose `dim` is sharded over mesh
+    axes whose product does not divide `sizes[0]` (8 KV heads over a model
+    axis of 16), those axes are replicated first, an explicit all-gather:
+    DTensor refuses the view."""
+    dim = dim % x.ndim
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh_sizes = x.device_mesh.shape
+        on_dim = [i for i, p in enumerate(x.placements)
+                  if isinstance(p, Shard) and p.dim == dim]
+        if sizes[0] % math.prod(mesh_sizes[i] for i in on_dim):
+            pl = tuple(Replicate() if i in on_dim else p
+                       for i, p in enumerate(x.placements))
+            x = x.redistribute(x.device_mesh, pl)
+    return x.unflatten(dim, tuple(sizes))
+
+
+def split_last(x, n: int, d: int):
+    """x (..., n * d) -> (..., n, d): the head split (`unflatten`)."""
+    return unflatten(x, -1, (n, d))
+
+
+def align_contraction(x, w):
+    """x (..., K) ready for `x @ w` with w (K, N) a DTensor sharded on K:
+    x's K is sharded over the same mesh axes (a local slice of a
+    replicated x, no communication), so the product is the row-parallel
+    one, a partial sum per rank, reduced where it is used. Left alone,
+    DTensor may instead gather w and split x's rows over those axes,
+    which turns a flattened (batch, seq) into a strided shard that its
+    matmul cannot take. A plain x, or a w not sharded on K, is returned
+    as it is."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    pl = tuple(Shard(last) if isinstance(pw, Shard) and pw.dim == 0
+               and isinstance(px, Replicate) else px
+               for px, pw in zip(x.placements, w.placements))
+    if pl == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def einsum(eq: str, *ops):
+    """`torch.einsum`. On DTensors whose every split dimension is a batch
+    index of `eq` (in every operand and in the output, split over the same
+    mesh axis in each), the einsum of the local shards, wrapped as a
+    DTensor split the same way: no communication, as DTensor's own rule
+    would have it, but DTensor flattens the batch indices into one first,
+    and a flattened (batch, heads) split over two mesh axes is a strided
+    split its product refuses. Any other case is `torch.einsum`'s."""
+    import torch
+    if not ops or not all(is_dtensor(o) for o in ops):
+        return torch.einsum(eq, *ops)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    mesh = ops[0].device_mesh
+    letter = {}                       # mesh dim -> the index split over it
+    for o, sub in zip(ops, subs):
+        for i, pl in enumerate(o.placements):
+            if isinstance(pl, Shard):
+                if letter.setdefault(i, sub[pl.dim]) != sub[pl.dim]:
+                    return torch.einsum(eq, *ops)
+            elif not isinstance(pl, Replicate):
+                return torch.einsum(eq, *ops)
+    for i, c in letter.items():
+        if c not in out or not all(
+                isinstance(o.placements[i], Shard)
+                and sub[o.placements[i].dim] == c
+                for o, sub in zip(ops, subs)):
+            return torch.einsum(eq, *ops)
+    size = {c: n for o, sub in zip(ops, subs) for c, n in zip(sub, o.shape)}
+    shape = torch.Size(size[c] for c in out)
+    local = torch.einsum(eq, *(o.to_local() for o in ops))
+    pl = tuple(Shard(out.index(letter[i])) if i in letter else Replicate()
+               for i in range(mesh.ndim))
+    # the global strides in the local result's dimension order (einsum
+    # may return a permuted layout)
+    stride, acc = [0] * len(shape), 1
+    for d in sorted(range(len(shape)), key=lambda d: local.stride(d)):
+        stride[d] = acc
+        acc *= shape[d]
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+def softmax(x, dim: int):
+    """`torch.softmax(x, dim)`. On a DTensor split along `dim` (decode
+    scores over a sequence-sharded cache), the same softmax spelled out:
+    its max and its sum reduce over the split, an all-reduce of one value
+    a row each, as GSPMD partitions the reference's; DTensor's own softmax
+    gathers the whole dimension first. Anything else is `torch.softmax`."""
+    import torch
+    if _split_on(x, dim):
+        e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+        return e / e.sum(dim=dim, keepdim=True)
+    return torch.softmax(x, dim=dim)
+
+
+def take_last(x, idx):
+    """x[..., idx]: the entry of x's last dim at `idx` (x's leading
+    shape) for each leading index, `torch.gather`. On a DTensor, a select
+    against `idx`'s one-hot mask and a sum: the same value, elementwise on
+    each shard, where the gather's backward would give every rank a
+    zeros tensor of the whole input."""
+    import torch
+    if is_dtensor(x):
+        hit = torch.arange(x.shape[-1], device=x.device) == idx[..., None]
+        return torch.where(hit, x, 0.0).sum(dim=-1)
+    return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def write_rows(cache, new, index):
+    """`cache` (B, H, S, D) with new (B, 1, H, D) written at sequence
+    position index[b] of each row b, as a new tensor (the given one
+    untouched). On a DTensor cache (sharded by batch and sequence, where
+    DTensor's `index_put` refuses), a select against the position's
+    one-hot mask: the same values, elementwise on each shard, as GSPMD
+    partitions the reference's scatter."""
+    import torch
+    if is_dtensor(cache):
+        pos = torch.arange(cache.shape[2], device=cache.device)
+        hit = (pos[None, :] == index[:, None])[:, None, :, None]
+        return torch.where(hit, new.transpose(1, 2).to(cache.dtype), cache)
+    bidx = torch.arange(new.shape[0], device=cache.device)
+    cache = cache.clone()
+    cache[bidx, :, index] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def micro_batch(v, i: int, n: int, k: int):
+    """Micro-batch i (of k, n rows each) along dim 0: rows [i n, (i+1) n).
+    A DTensor batch sharded on dim 0 over m ranks takes the i-th of k
+    blocks of every rank's shard instead, as a data-parallel trainer
+    walks its own rows: the same rows over the k micro-batches, grouped
+    by shard, with no communication (a contiguous slice of a sharded
+    dim would gather it)."""
+    if not is_dtensor(v):
+        return v[i * n:(i + 1) * n]
+    from torch.distributed.tensor import Shard
+    sizes = v.device_mesh.shape
+    m = math.prod(sizes[j] for j, p in enumerate(v.placements)
+                  if isinstance(p, Shard) and p.dim == 0)
+    return v.unflatten(0, (m, k, n // m))[:, i].flatten(0, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,11 @@ leaves are stored as the reference's `np.savez` stores them, raw 2-byte
 `|V1`), so each package reads the other's files without `ml_dtypes`. The
 trees differ (the port's `layers/<i>/...` against the reference's stacked
 `blocks/<j>/...`), so a file restores only into the package whose tree
-wrote it. Placing leaves by a mesh's shardings waits for the port's mesh;
-`restore` puts every leaf on one `device`.
+wrote it. `restore` puts every leaf on one `device`, or, given
+`shardings` (a tree of placements, `parallel.sharding.shardings_for`),
+each leaf that has one as a DTensor on the ambient mesh
+(`parallel.shardctx`): every rank reads the same file and keeps its own
+shard, with no scatter.
 """
 from __future__ import annotations
 
@@ -50,6 +53,26 @@ def _flatten(tree) -> Dict[str, Any]:
         else:
             flat["/".join(path)] = node
     visit(tree, ())
+    return flat
+
+
+def _flatten_placements(shardings) -> Dict[str, Any]:
+    """A placements tree flattened by `_flatten`'s paths; a tuple of
+    placements is a leaf."""
+    from torch.distributed.tensor import Placement
+    flat = {}
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            for k in node:
+                visit(node[k], path + (str(k),))
+        elif isinstance(node, (list, tuple)) and not (
+                node and all(isinstance(p, Placement) for p in node)):
+            for i, v in enumerate(node):
+                visit(v, path + (str(i),))
+        else:
+            flat["/".join(path)] = node
+    visit(shardings, ())
     return flat
 
 
@@ -166,10 +189,13 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, step: int, template, verify: bool = True,
-                device="cpu") -> Tuple[Any, dict]:
-        """The tree saved at `step`, in `template`'s structure, every leaf
-        on `device`, and the saved `extra`."""
+    def restore(self, step: int, template, shardings=None,
+                verify: bool = True, device="cpu") -> Tuple[Any, dict]:
+        """The tree saved at `step`, in `template`'s structure, and the
+        saved `extra`. Every leaf is on `device`; a leaf with placements in
+        `shardings` is a DTensor at them on the ambient mesh instead
+        (`distribute_tensor(..., src_data_rank=None)`: this rank's shard
+        of the file's leaf). A leaf without one stays as it is."""
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
         with np.load(d / "arrays.npz") as z:
@@ -178,16 +204,25 @@ class CheckpointManager:
             raise IOError(f"checkpoint {step}: hash mismatch (corrupt)")
         flat = {k: _from_host(v, manifest["leaves"][k]["dtype"], device)
                 for k, v in arrays.items()}
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            from repro_torch.parallel.sharding import current_mesh
+            mesh = current_mesh()
+            for k, pl in _flatten_placements(shardings).items():
+                if pl is not None and k in flat:
+                    flat[k] = distribute_tensor(flat[k], mesh, pl,
+                                                src_data_rank=None)
         for k in manifest["none_keys"]:
             flat[k.replace("#none", "")] = None
         return _unflatten_into(template, flat), manifest["extra"]
 
-    def restore_latest(self, template, device="cpu"):
+    def restore_latest(self, template, shardings=None, device="cpu"):
         """Newest non-corrupt checkpoint as (step, tree, extra), or None.
         Skips damaged steps — the restart-after-failure path."""
         for step in reversed(self.all_steps()):
             try:
-                tree, extra = self.restore(step, template, device=device)
+                tree, extra = self.restore(step, template, shardings,
+                                           device=device)
                 return step, tree, extra
             except Exception:
                 continue

@@ -35,12 +35,14 @@ state's device.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import torch
 
 from repro_torch.kernels.adamw8bit.ops import adamw8bit_update
 from repro_torch.kernels.adamw8bit.ref import f32, fma32, num_blocks
+from repro_torch.parallel.sharding import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +114,52 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return Optimizer(init, update)
 
 
+def _block_placements(p, m_q, block: int):
+    """One placement for a leaf's gradient, parameter, codes and scales
+    under which every 256-wide block of the last axis lies on one rank:
+    the codes' (the parameter rules plus ZeRO-1), with each mesh axis that
+    shards the last axis into pieces that are no whole number of blocks
+    replicated. The scales (..., nb) take the same placement: a shard of
+    whole blocks holds their scales."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = p.ndim - 1
+    sizes = m_q.device_mesh.shape
+    f = math.prod(sizes[i] for i, pl in enumerate(m_q.placements)
+                  if isinstance(pl, Shard) and pl.dim == last)
+    whole = p.shape[-1] % (f * block) == 0
+    return tuple(Replicate() if isinstance(pl, Shard) and pl.dim == last
+                 and not whole else pl for pl in m_q.placements)
+
+
+def _sharded_update8(g, p, m_q, m_scale, v_q, v_scale, bc1, bc2,
+                     grad_scale, *, block: int, **hyper):
+    """The 8-bit update of a DTensor leaf, rank by rank: every tensor is
+    redistributed to `_block_placements` (the collectives this takes are
+    the update's own), the plain update runs on the local shards in place,
+    and each updated tensor is written back at its own placement."""
+    from torch.distributed.tensor import DTensor
+    mesh = p.device_mesh
+    target = _block_placements(p, m_q, block)
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            return t
+        if t.ndim == 0:
+            return t.full_tensor()
+        if tuple(t.placements) != target:
+            t = t.redistribute(mesh, target)
+        return t.to_local()
+
+    locs = [local(t) for t in (g, p, m_q, m_scale, v_q, v_scale, bc1, bc2,
+                               grad_scale)]
+    adamw8bit_update(locs[0].contiguous(), *locs[1:], block=block, **hyper)
+    for t, lt in zip((p, m_q, m_scale, v_q, v_scale), locs[1:6]):
+        if tuple(t.placements) != target:
+            full = DTensor.from_local(lt, mesh, target, run_check=False,
+                                      shape=t.shape, stride=t.stride())
+            t.copy_(full.redistribute(mesh, t.placements))
+
+
 def adamw8bit(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
               eps: float = 1e-8, weight_decay: float = 0.0,
               block_size: int = 256) -> Optimizer:
@@ -133,10 +181,14 @@ def adamw8bit(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
         step, bc1, bc2 = _step_and_corrections(state, b1, b2)
 
         def upd(p, g, mq, vq):
-            adamw8bit_update(g.contiguous(), p, mq["q"], mq["scale"],
-                             vq["q"], vq["scale"], bc1, bc2, grad_scale,
-                             lr=lr, b1=b1, b2=b2, eps=eps,
-                             weight_decay=weight_decay, block=block_size)
+            args = (g, p, mq["q"], mq["scale"], vq["q"], vq["scale"], bc1,
+                    bc2, grad_scale)
+            hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                         weight_decay=weight_decay, block=block_size)
+            if is_dtensor(p):
+                _sharded_update8(*args, **hyper)
+            else:
+                adamw8bit_update(g.contiguous(), *args[1:], **hyper)
 
         tree_map(upd, params, grads, state["m"], state["v"])
         return params, {"step": step, "m": state["m"], "v": state["v"]}

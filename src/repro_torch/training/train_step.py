@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import train_loss
+from repro_torch.parallel.sharding import micro_batch
 from repro_torch.training.optimizer import Optimizer, tree_leaves, tree_map
 
 
@@ -59,12 +60,14 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer, qcfg=None,
         if accum_steps <= 1:
             return loss_and_grads(params, leaves, batch)
         n = next(iter(batch.values())).shape[0] // accum_steps
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        gsum = [torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
                 for p in leaves]
         z = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         lsum, ce, aux_ = z, z, z
         for i in range(accum_steps):
-            micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            micro = {k: micro_batch(v, i, n, accum_steps)
+                     for k, v in batch.items()}
             loss, aux, grads = loss_and_grads(params, leaves, micro)
             for a, g in zip(gsum, grads):
                 a.add_(g.float())

@@ -436,3 +436,70 @@ def test_local_batch_shard_map_on_ranks(runs):
 def test_constrain_redistributes_a_dtensor_only(runs):
     assert runs[2]["constrain"] == {"placements": True, "values": True,
                                     "plain": True}
+
+
+def test_dtensor_decode_steps_equal_the_plain_ones(runs):
+    """Reduced llama31-8b's parameters, cache and token as DTensors at
+    `launch.specs`' placements on the (2, 2) mesh, as the dry-run runs a
+    cell: two decode steps equal the plain ones (f32; logits within 1e-5
+    of their largest, the bf16 cache within one bf16 step), without and
+    with `PERF.flash_decode`, and the logits stay DTensors; likewise
+    reduced codeqwen1.5-7b, whose 4 KV heads split over the model axis."""
+    dt = runs[2]["dtensor"]
+    for case in ("decode flash=False", "decode flash=True",
+                 "decode codeqwen"):
+        d = dt[case]
+        assert d["dtensor"], case
+        assert d["logits"] <= 1e-5, (case, d)
+        assert d["kv"] <= 2 ** -8, (case, d)
+
+
+def test_dtensor_train_step_equals_the_plain_one(runs):
+    """One adamw8bit train step of 2 micro-batches with DTensor
+    parameters, state and batch on the (2, 2) mesh: the loss and the
+    gradient norm within 1e-5 of the plain step's (fp32 sums in another
+    order), the updated parameters within 1e-3 of their largest
+    magnitude (a moment whose fp32 value sits at an 8-bit code boundary
+    may take the next code) and at least 99% of the m codes equal."""
+    t = runs[2]["dtensor"]["train"]
+    assert t["step"]
+    assert t["loss"] <= 1e-5 and t["grad_norm"] <= 1e-5, t
+    assert t["params"] <= 1e-3, t
+    assert t["m_codes_equal_share"] >= 0.99, t
+
+
+@pytest.fixture(scope="module")
+def restores(tmp_path_factory):
+    """The sharded restore on 2 and on 4 gloo ranks."""
+    out = {}
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    procs = {}
+    for world in (2, 4):
+        d = tmp_path_factory.mktemp(f"restore{world}")
+        procs[world] = (d / "out.pkl", subprocess.Popen(
+            [sys.executable, str(REPO / "tests" / "torch_parallel_ranks.py"),
+             "--restore", str(world), str(d / "out.pkl")], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for world, (path, proc) in procs.items():
+        o, e = proc.communicate(timeout=300)
+        assert proc.returncode == 0, o + e
+        with open(path, "rb") as f:
+            out[world] = pickle.load(f)
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_restore_places_each_ranks_shard(restores, world):
+    """Rank 0 saves reduced llama31-8b's bf16 parameters and adamw8bit
+    state; every rank restores them with `shardings` (FSDP parameters and
+    ZeRO-1 state, on (2, 1) or (2, 2)): every leaf a DTensor whose local
+    shard is, bit for bit (bf16 through uint16), this rank's slice of the
+    unsharded restore; some of them really split. The newest step,
+    corrupted, is skipped by `restore_latest`, which returns step 1 placed
+    the same way."""
+    for rank, f in enumerate(restores[world]):
+        assert f["equal"], (world, rank, f)
+        assert f["dtensors"] == f["leaves"] > 0, (world, rank, f)
+        assert f["sharded"] > 0, (world, rank, f)
+        assert f["extra"] and f["latest_step"] == 1 and f["latest_equal"]

@@ -192,7 +192,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.planner.optimize", "repro_torch.planner.allocate",
             "repro_torch.planner.portfolio", "repro_torch.planner.routing",
             "repro_torch.planner.tables", "repro_torch.planner.day",
-            "repro_torch.planner.__main__"} <= loaded
+            "repro_torch.planner.__main__",
+            "repro_torch.launch.roofline", "repro_torch.launch.roofline_report",
+            "repro_torch.launch.hlo_analysis", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+            "repro_torch.launch.optimized_sweep",
+            "repro_torch.training.checkpoint"} <= loaded
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu():

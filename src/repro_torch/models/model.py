@@ -68,6 +68,7 @@ from repro_torch.parallel.sharding import (
     by_axes, constrain, current_mesh, is_dtensor, local_region, logical_spec,
     mesh_axes, split_last)
 from repro_torch.quant import quantize_tree
+from repro_torch.tracing import span
 
 MAX_POS = 32768          # learned-position table size (whisper)
 VLM_PATCHES = 256        # stubbed patch count for vlm input cells
@@ -253,12 +254,15 @@ def _apply_ff_aux(p, cfg: ModelConfig, x: torch.Tensor, is_moe: bool,
     without a MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if is_moe and "moe" in p:
-        h = apply_norm(p["ln2"], x, cfg.norm_kind)
-        mo, aux = moe_lib.apply_moe(p["moe"], h, cfg.moe, cfg.mlp_kind, qcfg)
-        x = _residual(x, mo)
+        with span("layer.moe"):
+            h = apply_norm(p["ln2"], x, cfg.norm_kind)
+            mo, aux = moe_lib.apply_moe(p["moe"], h, cfg.moe, cfg.mlp_kind,
+                                        qcfg)
+            x = _residual(x, mo)
     elif "mlp" in p:
-        h = apply_norm(p["ln2"], x, cfg.norm_kind)
-        x = _residual(x, apply_mlp(p["mlp"], h, cfg.mlp_kind, qcfg))
+        with span("layer.ffn"):
+            h = apply_norm(p["ln2"], x, cfg.norm_kind)
+            x = _residual(x, apply_mlp(p["mlp"], h, cfg.mlp_kind, qcfg))
     return x, aux
 
 

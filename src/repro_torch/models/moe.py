@@ -28,6 +28,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import INIT_STD, apply_mlp, init_mlp
 from repro_torch.parallel.sharding import constrain, is_dtensor, local_region
 from repro_torch.quant import dequantize
+from repro_torch.tracing import span
 
 
 def init_moe(d: int, cfg: MoEConfig, mlp_kind: str, *, device,
@@ -58,13 +59,15 @@ def init_moe(d: int, cfg: MoEConfig, mlp_kind: str, *, device,
 
 
 def _w(wp, dtype):
-    """Materialize a (possibly quantized) expert weight for the einsums."""
-    if isinstance(wp, dict):
-        q, s = wp["q"], wp["scale"]
-        if s is None:
-            return q.to(dtype)
-        return dequantize(q, s).to(dtype)
-    return wp
+    """Materialize a (possibly quantized) expert weight for the einsums,
+    in a `moe.dequant` span; the caller drops it after its one einsum."""
+    with span("moe.dequant"):
+        if isinstance(wp, dict):
+            q, s = wp["q"], wp["scale"]
+            if s is None:
+                return q.to(dtype)
+            return dequantize(q, s).to(dtype)
+        return wp
 
 
 def _activate(h_up, h_gate, kind: str):
@@ -144,35 +147,39 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
 
     xg = x.reshape(G, Sg, d)
     route = _route_sharded if is_dtensor(xg) else _route
-    probs, first, dispatch_t, combine_t = route(xg, p["router"], E, K, cap)
+    with span("moe.route"):
+        probs, first, dispatch_t, combine_t = route(xg, p["router"], E, K,
+                                                    cap)
 
     # Load-balancing aux loss (Switch-style): E * mean(frac_tokens * mean_prob)
     frac = first.mean(dim=(0, 1))
     aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
 
-    cdt = x.dtype
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch_t.to(cdt), xg)
-    expert_in = constrain(expert_in, "experts", "batch", None, None)
-    up = torch.einsum("egcd,edf->egcf", expert_in, _w(p["experts_up"], cdt))
-    gatep = p.get("experts_gate")
-    gate_h = (torch.einsum("egcd,edf->egcf", expert_in, _w(gatep, cdt))
-              if gatep is not None else None)
-    h = _activate(up, gate_h, mlp_kind)
-    out_e = torch.einsum("egcf,efd->egcd", h, _w(p["experts_down"], cdt))
-    out_e = constrain(out_e, "experts", "batch", None, None)
+    with span("moe.experts"):
+        cdt = x.dtype
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch_t.to(cdt), xg)
+        expert_in = constrain(expert_in, "experts", "batch", None, None)
+        up = torch.einsum("egcd,edf->egcf", expert_in,
+                          _w(p["experts_up"], cdt))
+        gatep = p.get("experts_gate")
+        gate_h = (torch.einsum("egcd,edf->egcf", expert_in, _w(gatep, cdt))
+                  if gatep is not None else None)
+        h = _activate(up, gate_h, mlp_kind)
+        out_e = torch.einsum("egcf,efd->egcd", h, _w(p["experts_down"], cdt))
+        out_e = constrain(out_e, "experts", "batch", None, None)
 
-    if is_dtensor(out_e):
-        # (expert, slot) flattened with the expert outer: DTensor's product
-        # takes the experts' split on the contracted dim as it is (partial
-        # sums, then a reduction), where einsum's own flattening makes a
-        # strided split that it refuses. Not the plain path's form: on a
-        # plain tensor it sums in another order, and so is not bit for bit
-        E_, G_, C_ = out_e.shape[:3]
-        out = torch.einsum(
-            "gsk,gkd->gsd", combine_t.to(cdt).flatten(2, 3),
-            out_e.permute(1, 0, 2, 3).reshape(G_, E_ * C_, d))
-    else:
-        out = torch.einsum("gsec,egcd->gsd", combine_t.to(cdt), out_e)
+        if is_dtensor(out_e):
+            # (expert, slot) flattened with the expert outer: DTensor's product
+            # takes the experts' split on the contracted dim as it is (partial
+            # sums, then a reduction), where einsum's own flattening makes a
+            # strided split that it refuses. Not the plain path's form: on a
+            # plain tensor it sums in another order, and so is not bit for bit
+            E_, G_, C_ = out_e.shape[:3]
+            out = torch.einsum(
+                "gsk,gkd->gsd", combine_t.to(cdt).flatten(2, 3),
+                out_e.permute(1, 0, 2, 3).reshape(G_, E_ * C_, d))
+        else:
+            out = torch.einsum("gsec,egcd->gsd", combine_t.to(cdt), out_e)
     out = out.reshape(B, S, d)
     if "shared" in p:
         out = out + apply_mlp(p["shared"], x, mlp_kind, qcfg)

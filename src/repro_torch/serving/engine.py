@@ -50,6 +50,7 @@ from repro_torch.serving.overload import OverloadPolicy
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.resilience import (FailureSpec, FailureTimeline,
                                       RetryPolicy, as_failure_events)
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -112,10 +113,8 @@ class Engine:
         # duration, so clock resets cannot skew it.
         self._ovl_state = 0                 # overload.NORMAL
         self._last_ttft = 0.0
-        # scheduler instrumentation (bench_engine_throughput)
+        # scheduler iterations, both paths (spans: `repro_torch.tracing`)
         self.n_iterations = 0
-        self.n_decode_steps = 0
-        self.n_ff_jumps = 0
 
     # ------------------------------------------------------------------
     def _advance(self, dt: float):
@@ -365,6 +364,7 @@ class Engine:
             req = queue.popleft() if isinstance(queue, deque) else queue.pop(0)
             slot = self.pm.admit(req.prompt_len, req.max_new_tokens)
             req.slot = slot
+            req.admitted_time = self.t
             req.state = RequestState.PREFILL
             self.slot_req[slot] = req
             batch.append(req)
@@ -417,150 +417,154 @@ class Engine:
 
         while (pi < len(pending) or queue or self.slot_req or self._requeue
                or self._retry_heap):
-            self.n_iterations += 1
-            if horizon is not None and self.t >= horizon:
-                break
-            # failure injection
-            if next_ev is not None and self.t >= next_ev.time:
-                self._sync_inflight_from_mirrors()
-                self.fail_running(next_ev.frac)
-                if next_ev.downtime > 0.0:
-                    self._down_until = max(self._down_until,
-                                           next_ev.time + next_ev.downtime)
-                timeline.pop()
-                next_ev = timeline.peek()
-            # idle regime: batch and queue both empty — jump the
-            # clock straight to the next submission (arrival or retry
-            # re-submit) and admit it (plus any co-arrivals) in this same
-            # wakeup, instead of burning a whole scheduler iteration on
-            # the advance alone. The reference loop re-checks horizon and
-            # failure injection at the top of its next iteration before
-            # admitting, so replay those two checks here to keep the
-            # event order identical.
-            if not self.slot_req and not queue and not self._requeue:
-                nxt_sub = self._next_submit(pending, pi)
-                if nxt_sub is not None and nxt_sub > self.t:
-                    self._advance(max(nxt_sub - self.t, 1e-6))
-                    if horizon is not None and self.t >= horizon:
-                        break
-                    if next_ev is not None and self.t >= next_ev.time:
-                        self._sync_inflight_from_mirrors()
-                        self.fail_running(next_ev.frac)
-                        if next_ev.downtime > 0.0:
-                            self._down_until = max(
-                                self._down_until,
-                                next_ev.time + next_ev.downtime)
-                        timeline.pop()
-                        next_ev = timeline.peek()
-            # arrivals (client re-submissions are arrivals too)
-            pi = self._drain_submissions(queue, pending, pi)
-            if self._requeue:
-                queue.extendleft(reversed(self._requeue))
-                self._requeue = []
-
-            blocked = self.t < self._down_until   # restart/warmup lag
-            batch = [] if blocked else self._admit_from(queue)
-            did_work = False
-            if batch:
-                lens = np.zeros(B, np.int32)
-                mask = np.zeros(B, bool)
-                for r in batch:
-                    lens[r.slot] = r.prompt_len
-                    mask[r.slot] = True
-                first, dt = self.ex.prefill(self._prefill_tokens(batch),
-                                            lens, mask,
-                                            self.pm.block_tables)
-                self._advance(dt)
-                n_prompt = 0
-                for r in batch:
-                    r.state = RequestState.RUNNING
-                    r.tokens_out = 1
-                    r.first_token_time = self.t
-                    r.prev_token_time = self.t
-                    self.slot_tokens[r.slot] = first[r.slot]
-                    self.context_lens[r.slot] = r.prompt_len
-                    self.active[r.slot] = True
-                    self.tokens_out_arr[r.slot] = 1
-                    self.max_new_arr[r.slot] = r.max_new_tokens
-                    n_prompt += r.prompt_len
-                self.metrics.inc("repro:prompt_tokens_total", n_prompt)
-                self.metrics.inc("repro:generation_tokens_total", len(batch))
-                self._observe_ttfts(batch)
-                for r in batch:
-                    if self.slot_tokens[r.slot] >= 0 and \
-                            r.tokens_out >= r.max_new_tokens:
-                        self._complete(r.slot)
-                did_work = True
-
-            # ---- decode: closed-form jump to the next scheduling event
-            nrun = int(self.active.sum())
-            if nrun:
-                if batch:
-                    # composition just changed; take exactly one step (the
-                    # reference loop decodes once per prefill iteration)
-                    k_max, tbudget = 1, None
-                else:
-                    rem = (self.max_new_arr[self.active] -
-                           self.tokens_out_arr[self.active])
-                    k_max = int(rem.min())
-                    cands = []
-                    if not queue:
-                        # submissions only matter while nothing is queued:
-                        # a blocked FCFS head keeps newcomers unadmittable
-                        nxt_sub = self._next_submit(pending, pi)
-                        if nxt_sub is not None:
-                            cands.append(nxt_sub - self.t)
-                    if next_ev is not None:
-                        cands.append(next_ev.time - self.t)
-                    if blocked and (queue or self._requeue):
-                        cands.append(self._down_until - self.t)
-                    if ddl > 0.0 and queue and not blocked:
-                        # head expiry unblocks FCFS: it is an event
-                        cands.append(queue[0].submitted_at + ddl - self.t)
-                    if horizon is not None:
-                        cands.append(horizon - self.t)
-                    tbudget = min(cands) if cands else None
-                nxt, dt, steps = self.ex.decode_multi(
-                    self.slot_tokens, self.active, self.pm.block_tables,
-                    self.context_lens, k_max, tbudget)
-                self._advance(dt)
-                self.n_decode_steps += steps
-                if steps > 1:
-                    self.n_ff_jumps += 1
-                act = self.active
-                if needs_tok:
-                    self.slot_tokens[act] = nxt[act]
-                self.tokens_out_arr[act] += steps
-                self.context_lens[act] += steps
-                self.metrics.inc("repro:generation_tokens_total",
-                                 steps * nrun)
-                done_mask = act & (self.tokens_out_arr >= self.max_new_arr)
-                if done_mask.any():
-                    for slot in np.flatnonzero(done_mask):
-                        slot = int(slot)
-                        r = self.slot_req[slot]
-                        r.tokens_out = int(self.tokens_out_arr[slot])
-                        r.prev_token_time = self.t
-                        self._complete(slot)
-                did_work = True
-
-            if not did_work:
-                cands = []
-                nxt_sub = self._next_submit(pending, pi)
-                if nxt_sub is not None:
-                    cands.append(nxt_sub)
-                if blocked and (queue or self._requeue):
-                    cands.append(self._down_until)
-                if ddl > 0.0 and queue and not blocked:
-                    cands.append(queue[0].submitted_at + ddl)
-                if cands:
-                    self._advance(max(min(cands) - self.t, 1e-6))
-                elif queue:
-                    raise RuntimeError(
-                        "scheduler stall: queued request cannot ever fit; "
-                        "increase num_pages/max_pages_per_seq")
-                else:
+            with span("engine.iteration"):
+                self.n_iterations += 1
+                if horizon is not None and self.t >= horizon:
                     break
+                # failure injection
+                if next_ev is not None and self.t >= next_ev.time:
+                    self._sync_inflight_from_mirrors()
+                    self.fail_running(next_ev.frac)
+                    if next_ev.downtime > 0.0:
+                        self._down_until = max(self._down_until,
+                                               next_ev.time + next_ev.downtime)
+                    timeline.pop()
+                    next_ev = timeline.peek()
+                # idle regime: batch and queue both empty — jump the
+                # clock straight to the next submission (arrival or retry
+                # re-submit) and admit it (plus any co-arrivals) in this same
+                # wakeup, instead of burning a whole scheduler iteration on
+                # the advance alone. The reference loop re-checks horizon and
+                # failure injection at the top of its next iteration before
+                # admitting, so replay those two checks here to keep the
+                # event order identical.
+                if not self.slot_req and not queue and not self._requeue:
+                    nxt_sub = self._next_submit(pending, pi)
+                    if nxt_sub is not None and nxt_sub > self.t:
+                        self._advance(max(nxt_sub - self.t, 1e-6))
+                        if horizon is not None and self.t >= horizon:
+                            break
+                        if next_ev is not None and self.t >= next_ev.time:
+                            self._sync_inflight_from_mirrors()
+                            self.fail_running(next_ev.frac)
+                            if next_ev.downtime > 0.0:
+                                self._down_until = max(
+                                    self._down_until,
+                                    next_ev.time + next_ev.downtime)
+                            timeline.pop()
+                            next_ev = timeline.peek()
+                with span("engine.admit"):
+                    # arrivals (client re-submissions are arrivals too)
+                    pi = self._drain_submissions(queue, pending, pi)
+                    if self._requeue:
+                        queue.extendleft(reversed(self._requeue))
+                        self._requeue = []
+
+                    blocked = self.t < self._down_until   # restart/warmup lag
+                    batch = [] if blocked else self._admit_from(queue)
+                    if batch:
+                        lens = np.zeros(B, np.int32)
+                        mask = np.zeros(B, bool)
+                        for r in batch:
+                            lens[r.slot] = r.prompt_len
+                            mask[r.slot] = True
+                        tokens = self._prefill_tokens(batch)
+                did_work = False
+                if batch:
+                    first, dt = self.ex.prefill(tokens, lens, mask,
+                                                self.pm.block_tables)
+                    with span("engine.bookkeep"):
+                        self._advance(dt)
+                        n_prompt = 0
+                        for r in batch:
+                            r.state = RequestState.RUNNING
+                            r.tokens_out = 1
+                            r.first_token_time = self.t
+                            r.prev_token_time = self.t
+                            self.slot_tokens[r.slot] = first[r.slot]
+                            self.context_lens[r.slot] = r.prompt_len
+                            self.active[r.slot] = True
+                            self.tokens_out_arr[r.slot] = 1
+                            self.max_new_arr[r.slot] = r.max_new_tokens
+                            n_prompt += r.prompt_len
+                        self.metrics.inc("repro:prompt_tokens_total", n_prompt)
+                        self.metrics.inc("repro:generation_tokens_total",
+                                         len(batch))
+                        self._observe_ttfts(batch)
+                        for r in batch:
+                            if self.slot_tokens[r.slot] >= 0 and \
+                                    r.tokens_out >= r.max_new_tokens:
+                                self._complete(r.slot)
+                    did_work = True
+
+                # ---- decode: closed-form jump to the next scheduling event
+                nrun = int(self.active.sum())
+                if nrun:
+                    if batch:
+                        # composition just changed; take exactly one step (the
+                        # reference loop decodes once per prefill iteration)
+                        k_max, tbudget = 1, None
+                    else:
+                        rem = (self.max_new_arr[self.active] -
+                               self.tokens_out_arr[self.active])
+                        k_max = int(rem.min())
+                        cands = []
+                        if not queue:
+                            # submissions only matter while nothing is queued:
+                            # a blocked FCFS head keeps newcomers unadmittable
+                            nxt_sub = self._next_submit(pending, pi)
+                            if nxt_sub is not None:
+                                cands.append(nxt_sub - self.t)
+                        if next_ev is not None:
+                            cands.append(next_ev.time - self.t)
+                        if blocked and (queue or self._requeue):
+                            cands.append(self._down_until - self.t)
+                        if ddl > 0.0 and queue and not blocked:
+                            # head expiry unblocks FCFS: it is an event
+                            cands.append(queue[0].submitted_at + ddl - self.t)
+                        if horizon is not None:
+                            cands.append(horizon - self.t)
+                        tbudget = min(cands) if cands else None
+                    nxt, dt, steps = self.ex.decode_multi(
+                        self.slot_tokens, self.active, self.pm.block_tables,
+                        self.context_lens, k_max, tbudget)
+                    with span("engine.bookkeep"):
+                        self._advance(dt)
+                        act = self.active
+                        if needs_tok:
+                            self.slot_tokens[act] = nxt[act]
+                        self.tokens_out_arr[act] += steps
+                        self.context_lens[act] += steps
+                        self.metrics.inc("repro:generation_tokens_total",
+                                         steps * nrun)
+                        done_mask = act & (self.tokens_out_arr
+                                           >= self.max_new_arr)
+                        if done_mask.any():
+                            for slot in np.flatnonzero(done_mask):
+                                slot = int(slot)
+                                r = self.slot_req[slot]
+                                r.tokens_out = int(self.tokens_out_arr[slot])
+                                r.prev_token_time = self.t
+                                self._complete(slot)
+                    did_work = True
+
+                if not did_work:
+                    cands = []
+                    nxt_sub = self._next_submit(pending, pi)
+                    if nxt_sub is not None:
+                        cands.append(nxt_sub)
+                    if blocked and (queue or self._requeue):
+                        cands.append(self._down_until)
+                    if ddl > 0.0 and queue and not blocked:
+                        cands.append(queue[0].submitted_at + ddl)
+                    if cands:
+                        self._advance(max(min(cands) - self.t, 1e-6))
+                    elif queue:
+                        raise RuntimeError(
+                            "scheduler stall: queued request cannot ever fit; "
+                            "increase num_pages/max_pages_per_seq")
+                    else:
+                        break
 
         # sync slot mirrors back onto in-flight request objects so a
         # re-entrant run() (or the caller) sees consistent progress
@@ -587,98 +591,103 @@ class Engine:
 
         while (pi < len(pending) or queue or self.slot_req or self._requeue
                or self._retry_heap):
-            self.n_iterations += 1
-            if horizon is not None and self.t >= horizon:
-                break
-            # failure injection
-            if next_ev is not None and self.t >= next_ev.time:
-                self.fail_running(next_ev.frac)
-                if next_ev.downtime > 0.0:
-                    self._down_until = max(self._down_until,
-                                           next_ev.time + next_ev.downtime)
-                timeline.pop()
-                next_ev = timeline.peek()
-            # arrivals (client re-submissions are arrivals too)
-            pi = self._drain_submissions(queue, pending, pi)
-            queue = self._requeue + queue
-            self._requeue = []
-
-            blocked = self.t < self._down_until   # restart/warmup lag
-            batch = [] if blocked else self._admit_from(queue)
-            did_work = False
-            if batch:
-                B = self.cfg.max_batch
-                tokens = self._prefill_tokens(batch)
-                lens = np.zeros(B, np.int32)
-                mask = np.zeros(B, bool)
-                for r in batch:
-                    lens[r.slot] = r.prompt_len
-                    mask[r.slot] = True
-                first, dt = self.ex.prefill(tokens, lens, mask,
-                                            self.pm.block_tables)
-                self._advance(dt)
-                for r in batch:
-                    r.state = RequestState.RUNNING
-                    r.tokens_out = 1
-                    r.first_token_time = self.t
-                    r.prev_token_time = self.t
-                    self.slot_tokens[r.slot] = first[r.slot]
-                    self.context_lens[r.slot] = r.prompt_len
-                    self.metrics.inc("repro:prompt_tokens_total",
-                                     r.prompt_len)
-                    self.metrics.inc("repro:generation_tokens_total", 1)
-                    if self.slot_tokens[r.slot] >= 0 and \
-                            r.tokens_out >= r.max_new_tokens:
-                        self._complete(r.slot)
-                self._observe_ttfts(batch)
-                did_work = True
-
-            # ---- decode step for all running slots
-            running = [r for r in self.slot_req.values()
-                       if r.state == RequestState.RUNNING]
-            if running:
-                B = self.cfg.max_batch
-                active = np.zeros(B, bool)
-                for r in running:
-                    active[r.slot] = True
-                try:
-                    nxt, dt = self.ex.decode(self.slot_tokens, active,
-                                             self.pm.block_tables,
-                                             context_lens=self.context_lens)
-                except TypeError:
-                    nxt, dt = self.ex.decode(self.slot_tokens, active,
-                                             self.pm.block_tables)
-                self._advance(dt)
-                self.n_decode_steps += 1
-                ngen = 0
-                for r in running:
-                    r.tokens_out += 1
-                    ngen += 1
-                    r.prev_token_time = self.t
-                    self.slot_tokens[r.slot] = nxt[r.slot]
-                    self.context_lens[r.slot] += 1
-                    if r.tokens_out >= r.max_new_tokens:
-                        self._complete(r.slot)
-                self.metrics.inc("repro:generation_tokens_total", ngen)
-                did_work = True
-
-            if not did_work:
-                cands = []
-                nxt_sub = self._next_submit(pending, pi)
-                if nxt_sub is not None:
-                    cands.append(nxt_sub)
-                if blocked and (queue or self._requeue):
-                    cands.append(self._down_until)
-                if ddl > 0.0 and queue and not blocked:
-                    cands.append(queue[0].submitted_at + ddl)
-                if cands:
-                    self._advance(max(min(cands) - self.t, 1e-6))
-                elif queue:
-                    # queued but cannot admit (capacity) and nothing
-                    # running -> deadlock guard (shouldn't happen)
-                    raise RuntimeError(
-                        "scheduler stall: queued request cannot ever fit; "
-                        "increase num_pages/max_pages_per_seq")
-                else:
+            with span("engine.iteration"):
+                self.n_iterations += 1
+                if horizon is not None and self.t >= horizon:
                     break
+                # failure injection
+                if next_ev is not None and self.t >= next_ev.time:
+                    self.fail_running(next_ev.frac)
+                    if next_ev.downtime > 0.0:
+                        self._down_until = max(self._down_until,
+                                               next_ev.time + next_ev.downtime)
+                    timeline.pop()
+                    next_ev = timeline.peek()
+                with span("engine.admit"):
+                    # arrivals (client re-submissions are arrivals too)
+                    pi = self._drain_submissions(queue, pending, pi)
+                    queue = self._requeue + queue
+                    self._requeue = []
+
+                    blocked = self.t < self._down_until   # restart/warmup lag
+                    batch = [] if blocked else self._admit_from(queue)
+                    if batch:
+                        B = self.cfg.max_batch
+                        tokens = self._prefill_tokens(batch)
+                        lens = np.zeros(B, np.int32)
+                        mask = np.zeros(B, bool)
+                        for r in batch:
+                            lens[r.slot] = r.prompt_len
+                            mask[r.slot] = True
+                did_work = False
+                if batch:
+                    first, dt = self.ex.prefill(tokens, lens, mask,
+                                                self.pm.block_tables)
+                    with span("engine.bookkeep"):
+                        self._advance(dt)
+                        for r in batch:
+                            r.state = RequestState.RUNNING
+                            r.tokens_out = 1
+                            r.first_token_time = self.t
+                            r.prev_token_time = self.t
+                            self.slot_tokens[r.slot] = first[r.slot]
+                            self.context_lens[r.slot] = r.prompt_len
+                            self.metrics.inc("repro:prompt_tokens_total",
+                                             r.prompt_len)
+                            self.metrics.inc(
+                                "repro:generation_tokens_total", 1)
+                            if self.slot_tokens[r.slot] >= 0 and \
+                                    r.tokens_out >= r.max_new_tokens:
+                                self._complete(r.slot)
+                        self._observe_ttfts(batch)
+                    did_work = True
+
+                # ---- decode step for all running slots
+                running = [r for r in self.slot_req.values()
+                           if r.state == RequestState.RUNNING]
+                if running:
+                    B = self.cfg.max_batch
+                    active = np.zeros(B, bool)
+                    for r in running:
+                        active[r.slot] = True
+                    try:
+                        nxt, dt = self.ex.decode(
+                            self.slot_tokens, active, self.pm.block_tables,
+                            context_lens=self.context_lens)
+                    except TypeError:
+                        nxt, dt = self.ex.decode(self.slot_tokens, active,
+                                                 self.pm.block_tables)
+                    with span("engine.bookkeep"):
+                        self._advance(dt)
+                        ngen = 0
+                        for r in running:
+                            r.tokens_out += 1
+                            ngen += 1
+                            r.prev_token_time = self.t
+                            self.slot_tokens[r.slot] = nxt[r.slot]
+                            self.context_lens[r.slot] += 1
+                            if r.tokens_out >= r.max_new_tokens:
+                                self._complete(r.slot)
+                        self.metrics.inc("repro:generation_tokens_total", ngen)
+                    did_work = True
+
+                if not did_work:
+                    cands = []
+                    nxt_sub = self._next_submit(pending, pi)
+                    if nxt_sub is not None:
+                        cands.append(nxt_sub)
+                    if blocked and (queue or self._requeue):
+                        cands.append(self._down_until)
+                    if ddl > 0.0 and queue and not blocked:
+                        cands.append(queue[0].submitted_at + ddl)
+                    if cands:
+                        self._advance(max(min(cands) - self.t, 1e-6))
+                    elif queue:
+                        # queued but cannot admit (capacity) and nothing
+                        # running -> deadlock guard (shouldn't happen)
+                        raise RuntimeError(
+                            "scheduler stall: queued request cannot ever fit; "
+                            "increase num_pages/max_pages_per_seq")
+                    else:
+                        break
         return list(requests)

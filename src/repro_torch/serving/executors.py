@@ -33,6 +33,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch.tracing import span
+
 
 def resolve_device(device) -> "torch.device":
     """The device an entry point runs on: the card unless the caller asks
@@ -82,30 +84,37 @@ class RealExecutor:
     def reset_slot(self, slot: int):
         self.seq_lens[slot] = 0
 
+    def _call(self, fn, first, *host):
+        """One step of `fn`: the host arrays copied to the device (h2d),
+        the step dispatched (step), its tokens back on the host and the
+        device drained (d2h); the tokens and the wall seconds."""
+        self._sync()
+        t0 = time.perf_counter()
+        with span("executor.h2d"):
+            bt, *args = [self._t(a) for a in (first,) + host]
+        with span("executor.step"):
+            out, self.seq_lens = fn(self.params, self.pools, bt,
+                                    self.seq_lens, *args)
+        with span("executor.d2h"):
+            out = out.cpu().numpy()
+            self._sync()
+        return out, time.perf_counter() - t0
+
     def prefill(self, tokens: np.ndarray, lens: np.ndarray,
                 do_mask: np.ndarray, block_tables: np.ndarray
                 ) -> Tuple[np.ndarray, float]:
-        self._sync()
-        t0 = time.perf_counter()
-        first, self.seq_lens = self.prefill_fn(
-            self.params, self.pools, self._t(block_tables), self.seq_lens,
-            self._t(tokens), self._t(lens), self._t(do_mask))
-        first = first.cpu().numpy()
-        self._sync()
+        with span("executor.prefill"):
+            out = self._call(self.prefill_fn, block_tables, tokens, lens,
+                             do_mask)
         self.n_prefill_calls += 1
-        return first, time.perf_counter() - t0
+        return out
 
     def decode(self, tokens: np.ndarray, active: np.ndarray,
                block_tables: np.ndarray) -> Tuple[np.ndarray, float]:
-        self._sync()
-        t0 = time.perf_counter()
-        nxt, self.seq_lens = self.decode_fn(
-            self.params, self.pools, self._t(block_tables), self.seq_lens,
-            self._t(tokens), self._t(active))
-        nxt = nxt.cpu().numpy()
-        self._sync()
+        with span("executor.decode"):
+            out = self._call(self.decode_fn, block_tables, tokens, active)
         self.n_decode_steps += 1
-        return nxt, time.perf_counter() - t0
+        return out
 
     def decode_multi(self, tokens: np.ndarray, active: np.ndarray,
                      block_tables: np.ndarray, context_lens: np.ndarray,

@@ -30,6 +30,9 @@ class Request:
     slot: int = -1                            # engine batch slot
     prefill_done: int = 0                     # tokens of prompt processed
     tokens_out: int = 0
+    admitted_time: Optional[float] = None     # engine clock when the
+    #                                           scheduler last took it
+    #                                           from the queue
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     prev_token_time: Optional[float] = None

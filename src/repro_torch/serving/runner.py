@@ -47,6 +47,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import apply_norm
 from repro_torch.quant import linear
+from repro_torch.tracing import span
 
 
 def set_matmul_precision():
@@ -123,6 +124,9 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     layers = list(zip(cfg.block_pattern(), cfg.moe_layer_mask()))
+    # one span a block's mixer (`tracing`); its feed-forward half has its own
+    spans = ["layer.attn" if kind == "attn" else "layer.recurrent"
+             for kind, _ in layers]
 
     def _recurrent(kind, p, h, state):
         """A Mamba, mLSTM or sLSTM block over h: (y, new state), from
@@ -141,32 +145,37 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
         """tokens: (B,) int32. Writes the new K/V and recurrent states into
         `pools`. Returns (next_tokens, seq_lens + active)."""
         B = tokens.shape[0]
-        x = model_lib.embed_tokens(params, cfg, tokens[:, None])
-        positions = model_lib._positions(cfg, B, 1, offset=seq_lens,
-                                         device=x.device)
-        lens_after = seq_lens + active.to(torch.int32)
-        for p, pool, (kind, is_moe) in zip(params["layers"], pools, layers):
-            h = apply_norm(p["ln1"], x, cfg.norm_kind)
-            if kind == "attn":
-                q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
-                q = attn_lib.rotate(cfg.rope_kind, q, positions,
-                                    cfg.rope_theta)
-                k = attn_lib.rotate(cfg.rope_kind, k, positions,
-                                    cfg.rope_theta)
-                _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
-                            seq_lens[:, None], active[:, None], page_size)
-                o = paged_attention(q[:, 0], pool["k"], pool["v"],
-                                    block_tables, lens_after)
-                x = x + linear(o.reshape(B, 1, nq * hd), p["attn"]["wo"],
-                               qcfg)
-            else:
-                y, st = _recurrent(kind, p, h, pool)
-                x = x + y
-                _mask_state(pool, st, active)
+        with span("step.embed"):
+            x = model_lib.embed_tokens(params, cfg, tokens[:, None])
+            positions = model_lib._positions(cfg, B, 1, offset=seq_lens,
+                                             device=x.device)
+            lens_after = seq_lens + active.to(torch.int32)
+        for p, pool, (kind, is_moe), name in zip(params["layers"], pools,
+                                                 layers, spans):
+            with span(name):
+                h = apply_norm(p["ln1"], x, cfg.norm_kind)
+                if kind == "attn":
+                    q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
+                    q = attn_lib.rotate(cfg.rope_kind, q, positions,
+                                        cfg.rope_theta)
+                    k = attn_lib.rotate(cfg.rope_kind, k, positions,
+                                        cfg.rope_theta)
+                    _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
+                                seq_lens[:, None], active[:, None],
+                                page_size)
+                    o = paged_attention(q[:, 0], pool["k"], pool["v"],
+                                        block_tables, lens_after)
+                    x = x + linear(o.reshape(B, 1, nq * hd),
+                                   p["attn"]["wo"], qcfg)
+                else:
+                    y, st = _recurrent(kind, p, h, pool)
+                    x = x + y
+                    _mask_state(pool, st, active)
             x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)
-        x = apply_norm(params["final_norm"], x, cfg.norm_kind)
-        logits = model_lib.unembed(params, cfg, x, qcfg)
-        nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        with span("step.head"):
+            x = apply_norm(params["final_norm"], x, cfg.norm_kind)
+            logits = model_lib.unembed(params, cfg, x, qcfg)
+            nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         return nxt, lens_after
 
     @torch.no_grad()
@@ -178,39 +187,43 @@ def make_step_fns(cfg: ModelConfig, page_size: int, qcfg=None):
         states into `pools`; returns (first_tokens, seq_lens) with
         seq_lens set to lens for those slots."""
         B, Lp = tokens.shape
-        x = model_lib.embed_tokens(params, cfg, tokens)
-        # M-RoPE rotates by (3, B, Lp) positions; the pages take (B, Lp)
-        positions = model_lib._positions(cfg, B, Lp, device=x.device)
-        posmat = torch.arange(Lp, device=x.device)[None].expand(B, Lp)
-        tok_active = (torch.arange(Lp, device=x.device)[None]
-                      < lens[:, None]) & do_prefill[:, None]
-        for p, pool, (kind, is_moe) in zip(params["layers"], pools, layers):
-            h = apply_norm(p["ln1"], x, cfg.norm_kind)
-            if kind == "attn":
-                q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
-                q = attn_lib.rotate(cfg.rope_kind, q, positions,
-                                    cfg.rope_theta)
-                k = attn_lib.rotate(cfg.rope_kind, k, positions,
-                                    cfg.rope_theta)
-                o = flash_attention(q, k, v, causal=True,
-                                    kv_len=lens.to(torch.int32))
-                x = x + linear(o.reshape(B, Lp, nq * hd), p["attn"]["wo"],
-                               qcfg)
-                _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
-                            posmat, tok_active, page_size)
-            else:
-                # over all Lp positions, pads included, as the reference
-                y, st = _recurrent(kind, p, h, None)
-                x = x + y
-                _mask_state(pool, st, do_prefill)
+        with span("step.embed"):
+            x = model_lib.embed_tokens(params, cfg, tokens)
+            # M-RoPE rotates by (3, B, Lp) positions; the pages take (B, Lp)
+            positions = model_lib._positions(cfg, B, Lp, device=x.device)
+            posmat = torch.arange(Lp, device=x.device)[None].expand(B, Lp)
+            tok_active = (torch.arange(Lp, device=x.device)[None]
+                          < lens[:, None]) & do_prefill[:, None]
+        for p, pool, (kind, is_moe), name in zip(params["layers"], pools,
+                                                 layers, spans):
+            with span(name):
+                h = apply_norm(p["ln1"], x, cfg.norm_kind)
+                if kind == "attn":
+                    q, k, v = attn_lib.qkv(p["attn"], h, nq, nkv, hd, qcfg)
+                    q = attn_lib.rotate(cfg.rope_kind, q, positions,
+                                        cfg.rope_theta)
+                    k = attn_lib.rotate(cfg.rope_kind, k, positions,
+                                        cfg.rope_theta)
+                    o = flash_attention(q, k, v, causal=True,
+                                        kv_len=lens.to(torch.int32))
+                    x = x + linear(o.reshape(B, Lp, nq * hd),
+                                   p["attn"]["wo"], qcfg)
+                    _scatter_kv(pool["k"], pool["v"], k, v, block_tables,
+                                posmat, tok_active, page_size)
+                else:
+                    # over all Lp positions, pads included, as the reference
+                    y, st = _recurrent(kind, p, h, None)
+                    x = x + y
+                    _mask_state(pool, st, do_prefill)
             x = model_lib._apply_ff(p, cfg, x, is_moe, qcfg)
-        x = apply_norm(params["final_norm"], x, cfg.norm_kind)
-        # logits at each request's last prompt position
-        idx = (lens.long() - 1).clamp(0, Lp - 1)
-        x_last = x[torch.arange(B, device=x.device), idx][:, None]
-        logits = model_lib.unembed(params, cfg, x_last, qcfg)
-        first = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
-        new_seq = torch.where(do_prefill, lens.to(torch.int32), seq_lens)
+        with span("step.head"):
+            x = apply_norm(params["final_norm"], x, cfg.norm_kind)
+            # logits at each request's last prompt position
+            idx = (lens.long() - 1).clamp(0, Lp - 1)
+            x_last = x[torch.arange(B, device=x.device), idx][:, None]
+            logits = model_lib.unembed(params, cfg, x_last, qcfg)
+            first = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            new_seq = torch.where(do_prefill, lens.to(torch.int32), seq_lens)
         return first, new_seq
 
     return prefill_fn, decode_fn

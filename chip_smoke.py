@@ -9,14 +9,16 @@ Phases, each of which exits non-zero on failure:
      one process each, in parallel; ptxas's register/shared-memory lines;
      the flash library's SASS (`cuobjdump -sass`) must hold tensor-core
      (HGMMA) and TMA-load (UTMALDG) instructions, the int8 library's
-     integer tensor-core (IGMMA) and TMA-load ones, the paged library's
+     integer tensor-core (IGMMA) and TMA-load ones, the MoE grouped GEMM's
+     HGMMA, UTMALDG and ldmatrix (LDSM) and no int-to-float conversion
+     (I2F), the paged library's
      cp.async copies (LDGSTS), the scan library's cp.async (or TMA) copies
      and exponentials (MUFU.EX2, counted), the fleet loop's PTX float64
      products, sums and quotients rounded to nearest (mul.rn, add.rn,
      div.rn) and no fused multiply-add (fma.f64) nor any product or sum
      that ptxas may contract (its SASS counted: DFMA there divides), and
-     ptxas must report no spill bytes for the int8, scan and 8-bit AdamW
-     kernels on a fresh build; SYNCS (mbarrier) counted; the 8-bit AdamW
+     ptxas must report no spill bytes for the int8, scan, 8-bit AdamW and
+     MoE grouped-GEMM kernels on a fresh build; SYNCS (mbarrier) counted; the 8-bit AdamW
      library's PTX must round every fp32 product, sum, quotient and square
      root on its own (mul.rn, add.rn, div.rn, sqrt.rn) and fuse only the
      multiply-adds its source writes (fma.rn), nothing ptxas may contract
@@ -64,7 +66,13 @@ Phases, each of which exits non-zero on failure:
      ragged sLSTM width 1365: p, codes and scales bit for bit against its
      plain version after 3 updates, a planted fault (the last 256-block of
      each row left un-re-encoded) rejected, timed beside its bound (10
-     bytes an element in bf16, plus the scales);
+     bytes an element in bf16, plus the scales). The int8 experts'
+     grouped GEMM (`check_moe_gemm`) at the decode and prefill expert
+     shapes of mixtral-8x7b, jamba-v0.1-52b, llama4-maverick-400b-a17b,
+     qwen3-30b-a3b and granite-moe-1b-a400m against `dequantize` + einsum
+     by `bf16_gate`, its weights bit for bit (codes at the extremes,
+     scales over 1e-10 to 1e4), two planted faults rejected, timed beside
+     its bound and the bf16 einsum on weights already dequantized;
   4. small-input checks: narrow models (llama31-8b in bf16 and in int8,
      qwen3-30b-a3b in bf16, mixtral-8x7b in int8 with its own routing,
      phi3-medium-14b in int8, codeqwen1.5-7b in bf16, nemotron-4-15b and
@@ -124,8 +132,12 @@ Phases, each of which exits non-zero on failure:
      mixtral-8x7b, 281 for phi3-medium-14b, 529 for granite-34b, 197 for
      qwen2-vl-7b, 18 for xlstm-350m's 4 layers, 15 for
      llama4-maverick-400b-a17b's 2, its shared expert's 3 among them),
-     and every call's fp32
-     logits finite. Then the contiguous-cache API: whisper-base at full
+     under int8 one grouped-GEMM launch per expert product of a MoE layer
+     per call (96 for mixtral-8x7b), and every call's fp32
+     logits finite. On a MoE path, after the timed serve, the first MoE
+     layer's expert products once more with the tracer on: one `moe.gemm`
+     span a launch and no `moe.dequant` for int8 experts, `moe.dequant`
+     and no launch for the others. Then the contiguous-cache API: whisper-base at full
      width and depth (6 + 6 layers) through `models.prefill` over 8 slots
      of 1500 frames and a 440-token prompt and 8 `decode_step`s, its
      counts set to 0 before it: flash 18 launches, 12 without a mask, no
@@ -223,6 +235,7 @@ lines, the
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -300,6 +313,15 @@ INT8_SHAPES = [
     (8, 5120, 202048, "llama4-maverick-400b-a17b lm_head"),
     (8, 5120, 1024, "llama4-maverick-400b-a17b decode wk/wv"),
 ]
+# the int8 experts' grouped GEMM at each MoE configuration's served shapes
+# (E, d, f, rows an expert at decode, at a prefill of 8 x 512): up and
+# gate (K d, N f) and down (K f, N d); rows as `models.moe.apply_moe`
+# gives them (groups of 256 tokens, capacity factor 1.25)
+MOE_GEMM_ARCHS = [("mixtral-8x7b", 8, 4096, 14336, 3, 1280),
+                  ("jamba-v0.1-52b", 16, 4096, 14336, 2, 640),
+                  ("llama4-maverick-400b-a17b", 128, 5120, 8192, 1, 48),
+                  ("qwen3-30b-a3b", 128, 2048, 768, 8, 320),
+                  ("granite-moe-1b-a400m", 32, 1024, 512, 8, 1280)]
 # the selective scan at jamba-v0.1-52b's served shapes (B, S, d_inner, N):
 # prefill of 8 slots at Lp 512 from a zero state, and a decode step
 SSM_SHAPES = [(8, 512, 8192, 16, "prefill"), (8, 1, 8192, 16, "decode")]
@@ -495,8 +517,8 @@ def sass_counts(lib_path: str) -> dict:
             ops.append(words[0])
     return {k: sum(o.startswith(k) for o in ops)
             for k in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS",
-                      "LDGSTS", "MUFU.EX2", "MUFU.RCP64H", "DFMA",
-                      "DMUL", "DADD", "FFMA")}
+                      "LDGSTS", "LDSM", "MUFU.EX2", "MUFU.RCP64H", "DFMA",
+                      "DMUL", "DADD", "FFMA", "I2F")}
 
 
 def device_ms(fn, arg_sets, per_graph=20, replays=5) -> float:
@@ -1014,6 +1036,135 @@ def check_int8(gen):
     return variants
 
 
+def moe_gemm_shapes():
+    """(E, M, K, N, what) of every product `check_moe_gemm` holds."""
+    out = []
+    for arch, E, d, f, dec, pre in MOE_GEMM_ARCHS:
+        for M, when in ((dec, "decode"), (pre, "prefill")):
+            out.append((E, M, d, f, f"{arch} {when} up/gate"))
+            out.append((E, M, f, d, f"{arch} {when} down"))
+    return out
+
+
+def moe_gemm_bound(E, M, K, N):
+    """(ops, bytes) of one launch: int8 weights and fp32 scales read once,
+    the bf16 rows in and out once."""
+    return 2 * E * M * K * N, E * K * N + 4 * E * N + 2 * E * M * (K + N)
+
+
+def one_hot_rows(E, K, ks, device):
+    """x (E, len(ks), K) bf16 whose row m is 1 at k = ks[m]: the product
+    with it is the weight's k-rows ks, exactly (one fp32 term a sum)."""
+    x = torch.zeros(E, len(ks), K, dtype=torch.bfloat16, device=device)
+    x[:, torch.arange(len(ks)), torch.as_tensor(ks)] = 1
+    return x
+
+
+def check_moe_gemm(gen):
+    """The int8 experts' grouped GEMM against its plain version (the
+    einsum on `quant.dequantize`'s bf16 weights) at every MoE
+    configuration's decode and prefill expert shapes, by `bf16_gate`; its
+    weights bit for bit against `dequantize` (one-hot rows of x read
+    k-rows of the weight: at decode 8 rows at spread k, at prefill every
+    k of the first two experts), also with codes at +-127, 0 and +-1 and
+    scales over 1e-10 to 1e4; two planted faults must fail the gate: the
+    last 64-deep K tile dropped, and expert 0's scale row shifted by one
+    column. Timed beside its bound, the plain version and the yardstick:
+    the bf16 einsum on weights already dequantized."""
+    from repro_torch.kernels import bf16_gate
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_kernel
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.quant import dequantize
+    dev = "cuda"
+    variants = []
+    for E, M, K, N, what in moe_gemm_shapes():
+        torch.cuda.empty_cache()
+        wbytes = E * K * N
+        n_sets = max(1, min(4, -(-120_000_000 // wbytes)))
+        sets = []
+        for _ in range(n_sets):
+            sets.append((
+                torch.randn(E, M, K, generator=gen, device=dev).bfloat16(),
+                torch.randint(-127, 128, (E, K, N), generator=gen,
+                              device=dev, dtype=torch.int8),
+                torch.rand(E, 1, N, generator=gen, device=dev) * 0.02
+                + 1e-4))
+        x, q, sc = sets[0]
+        out = moe_gemm_kernel(x, q, sc)
+        torch.cuda.synchronize()
+        ref = moe_gemm_ref(x, q, sc)
+        err, gate = max_abs(out, ref), bf16_gate(out, ref)
+        if not gate <= 1:
+            fail(f"moe_gemm at {what} {(E, M, K, N)} disagrees with its "
+                 f"plain version: max abs {err}, gate {gate} > 1")
+        del out, ref
+        # the weights, bit for bit: one-hot rows at spread k (decode path)
+        # or every k of two experts (prefill path)
+        wide = M > 64
+        ks = (list(range(K)) if wide else
+              [(K * i) // 8 + (37 * i) % (K // 8) for i in range(8)])
+        Ew = 2 if wide else E
+        qx = q[:Ew].clone()
+        qx[:, :, :4] = torch.tensor([127, -127, 0, 1], dtype=torch.int8,
+                                    device=dev)
+        qx[:, :, 4:8] = torch.tensor([-1, 126, -128 + 1, 64],
+                                     dtype=torch.int8, device=dev)
+        scx = torch.logspace(-10, 4, N, device=dev).reshape(1, 1, N) * (
+            1 + torch.rand(Ew, 1, N, generator=gen, device=dev))
+        bits = {}
+        for name, (qq, ss) in {"codes": (q[:Ew], sc[:Ew]),
+                               "extremes": (qx, scx)}.items():
+            xo = one_hot_rows(Ew, K, ks, dev)
+            got = moe_gemm_kernel(xo, qq.contiguous(), ss.contiguous())
+            want = dequantize(qq, ss)[:, ks]
+            torch.cuda.synchronize()
+            n_off = int((got.view(torch.int16)
+                         != want.view(torch.int16)).sum())
+            if n_off:
+                fail(f"moe_gemm at {what}: {n_off} of {want.numel()} "
+                     f"weights ({name}) differ from quant.dequantize's bits")
+            bits[name] = want.numel()
+            del xo, got, want, qq, ss
+        del qx, scx
+        # planted faults
+        ref = moe_gemm_ref(x, q, sc)
+        f_tile = moe_gemm_kernel(x[..., :K - 64].contiguous(),
+                                 q[:, :K - 64].contiguous(), sc)
+        shifted = sc.clone()
+        shifted[0] = torch.roll(sc[0], 1, dims=-1)
+        f_scale = moe_gemm_kernel(x, q, shifted)
+        faults = {"last K tile dropped": bf16_gate(f_tile, ref),
+                  "expert 0's scale row shifted": bf16_gate(f_scale, ref)}
+        if not all(g > 1 for g in faults.values()):
+            fail(f"moe_gemm at {what}: the gate accepts a planted fault: "
+                 f"{faults}")
+        del ref, f_tile, f_scale, shifted
+        ops, nbytes = moe_gemm_bound(E, M, K, N)
+        b_ms, b_by = bound(nbytes, ops)
+        ms = device_ms(moe_gemm_kernel, sets)
+        torch.cuda.empty_cache()      # the plain version's bf16 copies
+        plain_ms = device_ms(moe_gemm_ref, sets[:1], per_graph=1)
+        torch.cuda.empty_cache()
+        lib_sets = [(a[0], dequantize(a[1], a[2])) for a in sets]
+        lib_ms = device_ms(lambda xx, w: torch.einsum("emk,ekn->emn", xx, w),
+                           lib_sets)
+        del lib_sets
+        variants.append({
+            "shape": f"{what}: E={E} M={M} K={K} N={N}",
+            "max_abs_err": err, "gate": gate, "weights_bit_exact": bits,
+            "fault": faults, "fault_desc": "last K tile dropped; expert 0's "
+            "scale row shifted by one column",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "tflops": ops / ms * 1e-9, "gb_s": nbytes / ms * 1e-6,
+            "library_ms": lib_ms,
+            "library_note": "torch.einsum in bf16 on the weights already "
+                            "dequantized (reads 2 bytes a weight)",
+        })
+        del sets, x, q, sc
+    return variants
+
+
 def small_input_check(arch="llama31-8b", quant="bf16"):
     """A narrow model at head_dim 128 (2 layers; jamba-v0.1-52b 8: 7 Mamba
     layers, d_state 4, and one attention layer; xlstm-350m 4: mLSTM, sLSTM,
@@ -1368,8 +1519,8 @@ def int8_launches_per_call(cfg) -> int:
     x_proj, dt_proj, out_proj), six per mLSTM block (up, q, k, v, the
     gates, down) and three per sLSTM block (wx, up, down: its recurrent
     `slstm_wr` is dequantized), the dense MLPs' projections (the MoE
-    experts dequantize and never reach the kernel, a MoE layer's shared
-    expert is an MLP that does), and the lm_head unless the embeddings are
+    experts go to `moe_gemm` instead, a MoE layer's shared expert is an
+    MLP that reaches it), and the lm_head unless the embeddings are
     tied."""
     n = layer_counts(cfg)
     mlp = 3 if cfg.mlp_kind == "swiglu" else 2
@@ -1377,6 +1528,15 @@ def int8_launches_per_call(cfg) -> int:
         else 0
     return (4 * (n["attn"] + n["mamba"]) + 6 * n["mlstm"] + 3 * n["slstm"]
             + mlp * (n["mlp"] + shared) + (0 if cfg.tie_embeddings else 1))
+
+
+def moe_gemm_launches_per_call(cfg, quant) -> int:
+    """Grouped-GEMM launches of one prefill call or decode step: each MoE
+    layer's expert products (up, gate where swiglu, down) when its experts
+    are int8; none otherwise."""
+    if quant != "int8" or cfg.moe is None:
+        return 0
+    return (3 if cfg.mlp_kind == "swiglu" else 2) * layer_counts(cfg)["moe"]
 
 
 def record_steps(ex):
@@ -1401,6 +1561,49 @@ def record_steps(ex):
 
     ex.prefill, ex.decode = logged_prefill, logged_decode
     return log
+
+
+def moe_spans(params, kernel, quant) -> dict:
+    """After the timed serve, with the tracer on: the expert products of
+    the first MoE layer (`models.moe._experts` on 3 rows an expert), the
+    spans they open and the grouped-GEMM launches they make. Int8 experts
+    must open one `moe.gemm` a launch, one a product, and no
+    `moe.dequant`; any other expert stack one `moe.dequant` a product and
+    no launch."""
+    from repro_torch import tracing
+    from repro_torch.models import moe as moe_lib
+    p = next(lay["moe"] for lay in params["layers"] if "moe" in lay)
+    prods = [(p[k], eq) for k, eq in (("experts_up", "egcd,edf->egcf"),
+                                      ("experts_gate", "egcd,edf->egcf"),
+                                      ("experts_down", "egcf,efd->egcd"))
+             if p.get(k) is not None]
+    w = prods[0][0]
+    w = w["q"] if isinstance(w, dict) else w
+    E, d, f = w.shape
+    x = {"egcd": torch.zeros(E, 1, 3, d, dtype=torch.bfloat16,
+                             device=w.device),
+         "egcf": torch.zeros(E, 1, 3, f, dtype=torch.bfloat16,
+                             device=w.device)}
+    before = kernel.launches
+    tracing.drain()
+    tracing.enable()
+    try:
+        for wp, eq in prods:
+            moe_lib._experts(x[eq[:4]], wp, eq)
+    finally:
+        tracing.disable()
+    spans = dict(collections.Counter(sp.name for sp in tracing.drain()))
+    got = {"moe.gemm": spans.get("moe.gemm", 0),
+           "moe.dequant": spans.get("moe.dequant", 0),
+           "launches": kernel.launches - before}
+    n = len(prods)
+    want = ({"moe.gemm": n, "moe.dequant": 0, "launches": n}
+            if quant == "int8" else
+            {"moe.gemm": 0, "moe.dequant": n, "launches": 0})
+    if got != want:
+        fail(f"MoE spans of {n} expert products in {quant}: {got}, "
+             f"expected {want}")
+    return got
 
 
 def main_path(arch, quant, kernels):
@@ -1467,10 +1670,14 @@ def main_path(arch, quant, kernels):
               "paged_attention": n["attn"] * calls[1],
               "int8_matmul": (int8_launches_per_call(ex.cfg) * sum(calls)
                               if quant == "int8" else 0),
-              "ssm_scan": n["mamba"] * sum(calls)}
+              "ssm_scan": n["mamba"] * sum(calls),
+              "moe_gemm": moe_gemm_launches_per_call(ex.cfg, quant)
+              * sum(calls)}
     if launches != expect or not all(calls):
         fail(f"{arch} {quant}: launch counts {launches} != {expect} "
              f"({calls[0]} prefill calls, {calls[1]} decode steps)")
+    spans = (moe_spans(ex.params, kernels["moe_gemm"], quant)
+             if ex.cfg.moe is not None else {})
     if not all(_minus_inf_only_where_idle(p) for p in ex.pools):
         fail(f"{arch} {quant}: non-finite values in the KV pools or the "
              "recurrent states (beyond an idle slot's mLSTM m = -inf)")
@@ -1490,7 +1697,7 @@ def main_path(arch, quant, kernels):
         # C_eff is linear in the price
         "usd_per_mtok_at_1usd_hr":
             meter.summary()["time_weighted_avg"] / price,
-        "launches": launches, "wall_s": wall,
+        "launches": launches, "wall_s": wall, "moe_spans": spans,
     }
     print(f"main path {arch} {quant}: tokens {out['output_tokens']}, "
           f"tokens/s {out['tokens_per_s']:.1f}, TTFT p50 "
@@ -1556,7 +1763,7 @@ def whisper_path(kernels):
     peak = torch.cuda.max_memory_allocated()
     L, E = cfg.num_layers, cfg.encoder_layers
     expect = {"flash_attention": E + 2 * L, "paged_attention": 0,
-              "int8_matmul": 0, "ssm_scan": 0}
+              "int8_matmul": 0, "ssm_scan": 0, "moe_gemm": 0}
     print(f"contiguous API whisper-base: prefill {prefill_ms:.1f} ms, "
           f"decode steps {[round(t, 2) for t in decode_ms]} ms, launches "
           f"{launches} ({noncausal} without a mask), peak memory "
@@ -2988,6 +3195,7 @@ def main():
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_kernel
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_kernel
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_kernel
     from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
@@ -3024,6 +3232,12 @@ def main():
     if not (sass["IGMMA"] and sass["UTMALDG"]):
         fail(f"int8_matmul's SASS holds no integer wgmma or no TMA load: "
              f"{sass}")
+    sass = sass_counts(str(build.library_path("moe_gemm")))
+    print(f"build: moe_gemm SASS: {sass}", flush=True)
+    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["LDSM"]) or \
+            sass["I2F"]:
+        fail(f"moe_gemm's SASS must hold wgmma, TMA loads and ldmatrix and "
+             f"no int-to-float conversion (I2F): {sass}")
     sass = sass_counts(str(build.library_path("paged_attention")))
     print(f"build: paged_attention SASS: {sass}", flush=True)
     if not sass["LDGSTS"]:
@@ -3059,7 +3273,7 @@ def main():
              f"and square root on its own (.rn) and fuse only what the "
              f"source writes as __fmaf_rn: {ptx}")
     # an empty log: built before
-    for name in ("int8_matmul", "ssm_scan", "adamw8bit"):
+    for name in ("int8_matmul", "ssm_scan", "adamw8bit", "moe_gemm"):
         spills = [line.strip() for line in logs[name].splitlines()
                   if "spill" in line and not line.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
@@ -3080,6 +3294,9 @@ def main():
                         "src/repro/kernels/int8_matmul/kernel.py:43"),
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:55"),
+        "moe_gemm": ("src/repro_torch/csrc/moe_gemm.cu",
+                     "no Pallas kernel: src/repro/models/moe.py apply_moe's "
+                     "dequantized expert einsums, left to XLA"),
     }
     variants = {
         "paged_attention": [check_paged(gen, a) for a in ATTN_ARCHS],
@@ -3087,6 +3304,7 @@ def main():
         + check_flash_bidirectional(gen),
         "int8_matmul": check_int8(gen),
         "ssm_scan": check_ssm(gen),
+        "moe_gemm": check_moe_gemm(gen),
     }
     for name, vs in variants.items():
         for v in vs:
@@ -3148,7 +3366,8 @@ def main():
     kernels = {"paged_attention": paged_attention_kernel,
                "flash_attention": flash_attention_kernel,
                "int8_matmul": int8_matmul_kernel,
-               "ssm_scan": ssm_scan_kernel}
+               "ssm_scan": ssm_scan_kernel,
+               "moe_gemm": moe_gemm_kernel}
     paths, steps = [], []
     for arch, quant in MAIN_PATHS:
         phase(f"main path {arch} {quant}")

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels: TMA
-// tensor maps and copies, mbarriers, wgmma shared-memory descriptors and
-// bf16 and int8 products, named barriers and register reallocation between
-// warpgroups. Nothing here knows what a kernel computes.
+// tensor maps and copies, the dynamic shared memory a kernel may take,
+// mbarriers, wgmma shared-memory descriptors and bf16 and int8 products,
+// ldmatrix, named barriers and register reallocation between warpgroups.
+// Nothing here knows what a kernel computes.
 //
 // The tensor maps need the driver's cuTensorMapEncodeTiled. The libraries
 // link only the runtime, so it is fetched through the runtime's driver
@@ -69,6 +70,20 @@ inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
       elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- host: launch attributes ---------------------------------------------
+
+// Lets `kernel` take `bytes` of dynamic shared memory (past the 48 KB a
+// launch gets unasked), once: `configured` is the caller's flag for this
+// kernel, set when the attribute has been set.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  configured = e == cudaSuccess;
+  return e;
 }
 
 // ---- device: shared memory, mbarriers, TMA --------------------------------
@@ -257,39 +272,47 @@ __device__ __forceinline__ void fence_operands(T (&x)[N]) {
   for (int i = 0; i < N; ++i) fence_operand(x[i]);
 }
 
+// wgmma's D: the asm string of its registers %0 .. %(n - 1), and the
+// operands d[i] .. d[i + n - 1], fp32 (HOPPER_F) or int32 (HOPPER_R).
+#define HOPPER_D4 "{%0, %1, %2, %3}"
+#define HOPPER_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOPPER_D16                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define HOPPER_D32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
 #define HOPPER_D64                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
-#define HOPPER_D64_OPERANDS(d)                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
-  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
-  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
-  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
-  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
-  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),         \
-  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),         \
-  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
-  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define HOPPER_D32                                                        \
+#define HOPPER_D128                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define HOPPER_D32_OPERANDS(d)                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
-  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
-  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
-  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-  "+f"(d[31])
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "      \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "      \
+  "%122, %123, %124, %125, %126, %127}"
+#define HOPPER_F4(d, i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HOPPER_F8(d, i) HOPPER_F4(d, i), HOPPER_F4(d, i + 4)
+#define HOPPER_F16(d, i) HOPPER_F8(d, i), HOPPER_F8(d, i + 8)
+#define HOPPER_F32(d, i) HOPPER_F16(d, i), HOPPER_F16(d, i + 16)
+#define HOPPER_F64(d, i) HOPPER_F32(d, i), HOPPER_F32(d, i + 32)
+#define HOPPER_F128(d, i) HOPPER_F64(d, i), HOPPER_F64(d, i + 64)
+#define HOPPER_R4(d, i) \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define HOPPER_R8(d, i) HOPPER_R4(d, i), HOPPER_R4(d, i + 4)
+#define HOPPER_R16(d, i) HOPPER_R8(d, i), HOPPER_R8(d, i + 8)
+#define HOPPER_R32(d, i) HOPPER_R16(d, i), HOPPER_R16(d, i + 16)
+#define HOPPER_R64(d, i) HOPPER_R32(d, i), HOPPER_R32(d, i + 32)
+#define HOPPER_R128(d, i) HOPPER_R64(d, i), HOPPER_R64(d, i + 64)
 
 // The accumulator layout of wgmma m64nNk16 with fp32 D: thread t of the
 // warpgroup holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, and
@@ -306,11 +329,11 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
       ", %32, %33, p, 1, 1, 0, %35;\n}"
-      : HOPPER_D32_OPERANDS(d)
+      : HOPPER_F32(d, 0)
       : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
-// D (64 x 128, fp32) = A (64 x 16) * B (16 x 128) + (accumulate ? D : 0),
+// D (64 x N, fp32) = A (64 x 16) * B (16 x N) + (accumulate ? D : 0),
 // A bf16 in registers, B bf16 in shared memory, K-major (TRANS_B 0) or
 // N-major (1). A is four 32-bit registers a thread, each two bf16 (the
 // lower column in the low half), in the accumulator's layout for a 64 x 16
@@ -318,64 +341,64 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
 // 4)), a3 = (r + 8, 8 + 2 (t % 4)), so an accumulator converts to an A
 // operand in place. They must not change until the product has completed
 // (wgmma_wait).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    uint32_t a0, uint32_t a1,
-                                                    uint32_t a2, uint32_t a3,
-                                                    uint64_t b,
-                                                    int accumulate) {
+// Named wgmma_m64n<N>k16_rs for N = 8, 16, 32, 64, 128, 256.
+#define HOPPER_WGMMA_RS(N, R, DSTR, OPS, IA, IB, IC, IT)                   \
+  template <int TRANS_B>                                                   \
+  __device__ __forceinline__ void wgmma_m64n##N##k16_rs(                    \
+      float(&d)[R], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,    \
+      uint64_t b, int accumulate) {                                        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IC ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                    \
+                 "k16.f32.bf16.bf16 " DSTR ", {%" IA "}, %" IB             \
+                 ", p, 1, 1, %" IT ";\n}"                                  \
+                 : OPS                                                     \
+                 : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b),             \
+                   "r"(accumulate), "n"(TRANS_B));                         \
+  }
+
+HOPPER_WGMMA_RS(8, 4, HOPPER_D4, HOPPER_F4(d, 0), "4, %5, %6, %7", "8", "9",
+                "10")
+HOPPER_WGMMA_RS(16, 8, HOPPER_D8, HOPPER_F8(d, 0), "8, %9, %10, %11", "12",
+                "13", "14")
+HOPPER_WGMMA_RS(32, 16, HOPPER_D16, HOPPER_F16(d, 0), "16, %17, %18, %19",
+                "20", "21", "22")
+HOPPER_WGMMA_RS(64, 32, HOPPER_D32, HOPPER_F32(d, 0), "32, %33, %34, %35",
+                "36", "37", "38")
+HOPPER_WGMMA_RS(128, 64, HOPPER_D64, HOPPER_F64(d, 0), "64, %65, %66, %67",
+                "68", "69", "70")
+HOPPER_WGMMA_RS(256, 128, HOPPER_D128, HOPPER_F128(d, 0),
+                "128, %129, %130, %131", "132", "133", "134")
+
+#undef HOPPER_WGMMA_RS
+
+// ---- device: ldmatrix ------------------------------------------------------
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory, transposed:
+// threads 8 j .. 8 j + 7 give the addresses of matrix j's 8 rows (16
+// bytes each, 16-byte aligned), and r[j] of thread t holds the elements
+// (row 2 (t % 4), column t / 4) in its low half and (row 2 (t % 4) + 1,
+// column t / 4) in its high half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}"
-      : HOPPER_D64_OPERANDS(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate),
-        "n"(TRANS_B));
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
 }
 
-// D (64 x 64, fp32) = A (64 x 16) * B (16 x 64) + (accumulate ? D : 0),
-// A bf16 in registers as for wgmma_m64n128k16_rs, B bf16 in shared memory,
-// K-major (TRANS_B 0) or N-major (1).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   uint32_t a0, uint32_t a1,
-                                                   uint32_t a2, uint32_t a3,
-                                                   uint64_t b,
-                                                   int accumulate) {
+// The same for two matrices (rows from threads 0-15), r[j] as above.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}"
-      : HOPPER_D32_OPERANDS(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate),
-        "n"(TRANS_B));
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
 }
 
 // ---- device: int8 wgmma ---------------------------------------------------
-
-#define HOPPER_D4 "{%0, %1, %2, %3}"
-#define HOPPER_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
-#define HOPPER_D16                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define HOPPER_D128                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
-  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
-  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
-  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "      \
-  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "      \
-  "%122, %123, %124, %125, %126, %127}"
-// int32 accumulator operands d[i] .. d[i + n - 1]
-#define HOPPER_R4(d, i) \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
-#define HOPPER_R8(d, i) HOPPER_R4(d, i), HOPPER_R4(d, i + 4)
-#define HOPPER_R16(d, i) HOPPER_R8(d, i), HOPPER_R8(d, i + 8)
-#define HOPPER_R32(d, i) HOPPER_R16(d, i), HOPPER_R16(d, i + 16)
-#define HOPPER_R64(d, i) HOPPER_R32(d, i), HOPPER_R32(d, i + 32)
-#define HOPPER_R128(d, i) HOPPER_R64(d, i), HOPPER_R64(d, i + 64)
 
 // D (64 x N, int32) = A (64 x 32) * B (32 x N) + (accumulate ? D : 0),
 // issued by one warpgroup; A and B int8 in shared memory (descriptors),

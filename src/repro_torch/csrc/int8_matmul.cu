@@ -395,22 +395,13 @@ int8_matmul_decode_kernel(const __grid_constant__ CUtensorMap map_x,
 
 // ---- host -----------------------------------------------------------------
 
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  configured = e == cudaSuccess;
-  return e;
-}
-
 template <int BN>
 cudaError_t launch_prefill(const void* x, const void* w, const float* xs,
                            const float* ws, float* out, int M, int N, int K,
                            int ldx, int ldw, int ldo, cudaStream_t st) {
   static bool configured = false;
-  cudaError_t e = allow_smem(int8_matmul_prefill_kernel<BN>,
-                             Prefill<BN>::SMEM, configured);
+  cudaError_t e = hopper::allow_smem(int8_matmul_prefill_kernel<BN>,
+                                     Prefill<BN>::SMEM, configured);
   if (e) return e;
   CUtensorMap mx, mw, mo;
   constexpr CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
@@ -434,8 +425,8 @@ cudaError_t launch_decode(const void* x, const void* w, const float* xs,
                           const float* ws, float* out, int M, int N, int K,
                           int ldx, int ldw, int ldo, cudaStream_t st) {
   static bool configured = false;
-  cudaError_t e = allow_smem(int8_matmul_decode_kernel<MN>,
-                             Decode<MN>::SMEM, configured);
+  cudaError_t e = hopper::allow_smem(int8_matmul_decode_kernel<MN>,
+                                     Decode<MN>::SMEM, configured);
   if (e) return e;
   CUtensorMap mx, mw;
   constexpr CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;

@@ -67,6 +67,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BD = 128;             // channels a block
@@ -346,19 +348,11 @@ ssm_scan_step_kernel(const float* __restrict__ u,
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  configured = e == cudaSuccess;
-  return e;
-}
-
 template <int N, bool VEC>
 cudaError_t configure() {
   static bool configured = false;
-  return allow_smem(ssm_scan_kernel<N, VEC>, smem_bytes<N>(), configured);
+  return hopper::allow_smem(ssm_scan_kernel<N, VEC>, smem_bytes<N>(),
+                            configured);
 }
 
 template <int N, bool VEC>

@@ -10,6 +10,9 @@
   adamw8bit/        the 8-bit AdamW update of one leaf (csrc/adamw8bit.cu):
                     no Pallas counterpart; it replaces the XLA fusion of
                     the jitted `adamw8bit` update
+  moe_gemm/         the MoE's int8 expert products, weights dequantized in
+                    registers (csrc/moe_gemm.cu): no Pallas counterpart;
+                    it replaces `models.moe._w`'s bf16 copy and the einsum
 
 Each subpackage has `ref.py` (plain version), `kernel.py` (ctypes binding
 with a launch count) and `ops.py` (dispatch: kernel for CUDA tensors,

@@ -9,9 +9,13 @@ token, expert, slot) tensors. The port builds those tensors by adding each
 times 0 where the assignment overflowed: the same values as the
 reference's sum over k of one-hot products, without its (G, Sg, K, E, C)
 intermediate. The expert MLPs are batched products over E, as the
-reference leaves them to XLA; quantized expert weights are dequantized to
-bf16 first (`_w`), so they never go through the int8 kernel, exactly as in
-the reference.
+reference leaves them to XLA. Experts stored int8 (a `{"q", "scale"}`
+dict) on the card go to the grouped GEMM of `kernels.moe_gemm`, which
+dequantizes each weight in registers to the bits of `quant.dequantize`
+and never writes a bf16 copy (`uses_gemm`). Every other expert stack
+(bf16, fp8, sharded as a DTensor, on the CPU) goes through `_w`, which
+dequantizes a quantized one to bf16, and an einsum, exactly as in the
+reference.
 
 Ties in the router's top-k go to the lower expert index, as
 `jax.lax.top_k` breaks them (`torch.topk` does not promise that).
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.models.layers import INIT_STD, apply_mlp, init_mlp
 from repro_torch.parallel.sharding import constrain, is_dtensor, local_region
 from repro_torch.quant import dequantize
@@ -68,6 +73,34 @@ def _w(wp, dtype):
                 return q.to(dtype)
             return dequantize(q, s).to(dtype)
         return wp
+
+
+def gemm_takes(dtype, device_type: str, sharded: bool) -> bool:
+    """The rule that sends an expert stack to the grouped GEMM: int8
+    codes (a `{"q", "scale"}` dict with a scale) on a CUDA device, not a
+    DTensor. Anything else takes `_w` and an einsum."""
+    return dtype == torch.int8 and device_type == "cuda" and not sharded
+
+
+def uses_gemm(wp, x) -> bool:
+    """`gemm_takes` of expert weights `wp` and their input `x`."""
+    if not isinstance(wp, dict) or wp["scale"] is None:
+        return False
+    q = wp["q"]
+    return gemm_takes(q.dtype, q.device.type, is_dtensor(q) or is_dtensor(x))
+
+
+def _experts(x, wp, eq: str):
+    """One batched expert product `eq` of x (E, G, C, K) and the experts'
+    (E, K, N) weights: the grouped GEMM (`uses_gemm`, in a `moe.gemm`
+    span) or the einsum on `_w`'s weight."""
+    if not uses_gemm(wp, x):
+        return torch.einsum(eq, x, _w(wp, x.dtype))
+    E, G, C, K = x.shape
+    with span("moe.gemm"):
+        out = moe_gemm(x.reshape(E, G * C, K).contiguous(), wp["q"],
+                       wp["scale"])
+    return out.reshape(E, G, C, -1)
 
 
 def _activate(h_up, h_gate, kind: str):
@@ -159,13 +192,12 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
         cdt = x.dtype
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch_t.to(cdt), xg)
         expert_in = constrain(expert_in, "experts", "batch", None, None)
-        up = torch.einsum("egcd,edf->egcf", expert_in,
-                          _w(p["experts_up"], cdt))
+        up = _experts(expert_in, p["experts_up"], "egcd,edf->egcf")
         gatep = p.get("experts_gate")
-        gate_h = (torch.einsum("egcd,edf->egcf", expert_in, _w(gatep, cdt))
+        gate_h = (_experts(expert_in, gatep, "egcd,edf->egcf")
                   if gatep is not None else None)
         h = _activate(up, gate_h, mlp_kind)
-        out_e = torch.einsum("egcf,efd->egcd", h, _w(p["experts_down"], cdt))
+        out_e = _experts(h, p["experts_down"], "egcf,efd->egcd")
         out_e = constrain(out_e, "experts", "batch", None, None)
 
         if is_dtensor(out_e):

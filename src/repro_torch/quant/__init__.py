@@ -25,8 +25,9 @@ columns of a contiguous `(d_out, ceil(d_in / 16) * 16)` tensor, strides
 multiple of 16 bytes apart, and a zero tail past `d_in` (xlstm-350m's
 sLSTM down projection, d_in 1365) is never read. Shapes and values stay
 the reference's. Stacked int8 weights (3-D and
-more: the MoE experts `(E, d, f)`, which `models.moe._w` dequantizes and
-which never reach the kernel) and fp8 weights keep the row-major layout.
+more: the MoE experts `(E, d, f)`, which on the card go to the grouped
+GEMM of `kernels.moe_gemm`, not to this kernel, and which it reads
+row-major) and fp8 weights keep the row-major layout.
 The number of dimensions tells the two apart, since `linear` takes 2-D
 weights only. `stored` is that rule; `quantize_weight` and
 `weights.params_from_jax` both apply it.

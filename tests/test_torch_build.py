@@ -50,11 +50,11 @@ def test_library_path_sees_the_flags(csrc, monkeypatch):
 
 
 def test_the_real_kernels_include_the_hopper_header():
-    """flash_attention.cu and int8_matmul.cu include csrc/hopper.cuh, so
-    the header is part of their keys; a kernel that does not include it
-    keeps its own."""
-    for name in ("flash_attention", "int8_matmul"):
+    """flash_attention.cu, int8_matmul.cu, moe_gemm.cu and ssm_scan.cu
+    include csrc/hopper.cuh, so the header is part of their keys; a
+    kernel that does not include it (paged_attention.cu) keeps its own."""
+    for name in ("flash_attention", "int8_matmul", "moe_gemm", "ssm_scan"):
         srcs = build._sources((build.CSRC / f"{name}.cu").resolve(), {})
         assert [p.name for p in srcs] == [f"{name}.cu", "hopper.cuh"]
-    scan = build._sources((build.CSRC / "ssm_scan.cu").resolve(), {})
-    assert [p.name for p in scan] == ["ssm_scan.cu"]
+    paged = build._sources((build.CSRC / "paged_attention.cu").resolve(), {})
+    assert [p.name for p in paged] == ["paged_attention.cu"]

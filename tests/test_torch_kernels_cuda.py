@@ -23,6 +23,13 @@ the scales are the same on both sides. Its weights are stored K-major, as
 the model stores them (`repro_torch.quant.k_major`). Dropping the last
 128-wide K tile must break that equality.
 
+The int8 experts' grouped GEMM is held to its plain version (the einsum
+on `quant.dequantize`'s weights) by `bf16_gate <= 1`: the same bf16
+products summed in fp32 in another order. Its weights are held bit for
+bit: x rows that are one-hot in k read the weight's k-rows exactly.
+Dropping the last 64-deep K tile, or shifting one expert's scales by a
+column, must fail the gate.
+
 The selective scan is held to its plain version by `fp32_gate <= 1`, that
 is |kernel - plain| <= 1e-5 + 1e-4 |plain| on every element of y and
 h_final: the same fp32 recurrence, but the kernel takes exp as ex2.approx
@@ -49,14 +56,17 @@ from repro_torch.kernels.int8_matmul.kernel import (int8_matmul_kernel,
                                                     pad_rows)
 from repro_torch.kernels.int8_matmul.ops import int8_matmul
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm_kernel
+from repro_torch.kernels.moe_gemm.ops import moe_gemm
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssm_scan.kernel import layout, ssm_scan_kernel
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
-from repro_torch.quant import (BY_NAME, act_scale, k_major, linear,
-                               quantize_weight)
+from repro_torch.quant import (BY_NAME, act_scale, dequantize, k_major,
+                               linear, quantize_weight)
 from repro_torch.serving.runner import set_matmul_precision
 
 pytestmark = pytest.mark.cuda
@@ -1041,3 +1051,97 @@ def test_adamw8bit_wrapper_refuses_what_the_kernel_does_not_take(gen):
                          **HYPER)
     with pytest.raises(ValueError, match="blocks of 256"):
         adamw8bit_kernel(g, p, mq, ms, vq, vs, one, one, block=128, **HYPER)
+
+
+def _moe_inputs(gen, E, M, K, N):
+    """x (E, M, K) bf16, int8 expert codes (E, K, N) row-major, as
+    `quant.quantize_weight` stores a stack, and their (E, 1, N) scales."""
+    q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    sc = torch.rand(E, 1, N, generator=gen, device="cuda") * 0.02 + 1e-4
+    return _randn(gen, E, M, K), q, sc
+
+
+@pytest.mark.parametrize("E,M,K,N", [
+    (8, 3, 4096, 14336),               # mixtral-8x7b decode up/gate
+    (8, 3, 14336, 4096),               # mixtral-8x7b decode down
+    (16, 2, 4096, 14336),              # jamba-v0.1-52b decode
+    (128, 1, 5120, 8192),              # llama4-maverick decode
+    (128, 48, 5120, 1024),             # llama4-maverick prefill rows
+    (128, 8, 2048, 768),               # qwen3-30b-a3b decode
+    (32, 8, 1024, 512),                # granite-moe-1b-a400m decode
+    (2, 1280, 4096, 1024),             # a prefill expert, 5 row tiles
+    (4, 17, 272, 384),                 # ragged rows and K
+    (3, 200, 272, 384),                # one 256-row tile
+    (3, 320, 272, 384),                # 128-row tiles, a half block
+])
+def test_moe_gemm_kernel_equals_plain(gen, E, M, K, N):
+    x, q, sc = _moe_inputs(gen, E, M, K, N)
+    n = moe_gemm_kernel.launches
+    out = moe_gemm(x, q, sc)
+    torch.cuda.synchronize()
+    assert moe_gemm_kernel.launches == n + 1
+    assert out.shape == (E, M, N) and out.dtype == torch.bfloat16
+    assert bf16_gate(out, moe_gemm_ref(x, q, sc)) <= 1
+
+
+@pytest.mark.parametrize("M", [8, 40, 256, 320])
+def test_moe_gemm_weights_equal_dequantize_bit_for_bit(gen, M):
+    """One-hot rows of x read k-rows of the weight: the kernel's weights
+    are `dequantize`'s to the bit, codes +-127 and scales spread over 14
+    decades included (8 and 40 rows on the decode path; 256 rows on the prefill's
+    256-row tiles, 320 on its 128-row ones)."""
+    E, K, N = 2, 384, 384
+    _, q, sc = _moe_inputs(gen, E, 1, K, N)
+    q[:, :, :6] = torch.tensor([127, -127, 0, 1, -1, 64], dtype=torch.int8,
+                               device="cuda")
+    sc = sc * torch.logspace(-8, 6, N, device="cuda")
+    ks = torch.randperm(K, generator=gen, device="cuda")[:M]
+    x = torch.zeros(E, M, K, dtype=torch.bfloat16, device="cuda")
+    x[:, torch.arange(M, device="cuda"), ks] = 1
+    out = moe_gemm_kernel(x, q, sc)
+    assert torch.equal(out.view(torch.int16),
+                       dequantize(q, sc)[:, ks].view(torch.int16))
+
+
+@pytest.mark.parametrize("M", [3, 160])
+def test_moe_gemm_gate_rejects_planted_faults(gen, M):
+    E, K, N = 4, 1024, 512
+    x, q, sc = _moe_inputs(gen, E, M, K, N)
+    ref = moe_gemm_ref(x, q, sc)
+    dropped = moe_gemm_kernel(x[..., :K - 64].contiguous(),
+                              q[:, :K - 64].contiguous(), sc)
+    assert bf16_gate(dropped, ref) > 1
+    shifted = sc.clone()
+    shifted[1] = torch.roll(sc[1], 1, dims=-1)
+    assert bf16_gate(moe_gemm_kernel(x, q, shifted), ref) > 1
+
+
+def test_moe_gemm_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    x, q, sc = _moe_inputs(gen, 2, 3, 256, 384)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        moe_gemm_kernel(x.cpu(), q, sc)
+    with pytest.raises(TypeError, match="x bf16"):
+        moe_gemm_kernel(x.float(), q, sc)
+    with pytest.raises(TypeError, match="x bf16"):
+        moe_gemm_kernel(x, q.to(torch.float8_e4m3fn), sc)
+    with pytest.raises(TypeError, match="x bf16"):
+        moe_gemm_kernel(x, q, sc.bfloat16())
+    with pytest.raises(ValueError, match="shapes"):
+        moe_gemm_kernel(x, q[:, :128].contiguous(), sc)
+    with pytest.raises(ValueError, match="shapes"):
+        moe_gemm_kernel(x, q, sc[:, :, :128].contiguous())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        moe_gemm_kernel(x, q[..., :320].contiguous(),
+                        sc[..., :320].contiguous())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        moe_gemm_kernel(x[..., :250].contiguous(), q[:, :250].contiguous(),
+                        sc)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gemm_kernel(x, q.transpose(1, 2).contiguous().transpose(1, 2),
+                        sc)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gemm_kernel(x.transpose(0, 1).contiguous().transpose(0, 1), q,
+                        sc)
+    with pytest.raises(ValueError, match="aligned"):
+        moe_gemm_kernel(_misaligned(x), q, sc)

@@ -145,6 +145,34 @@ def test_quantized_experts_dequantize_as_the_reference(mode):
     _close(*_run(jcfg, jq, x, "bfloat16"), "bfloat16")
 
 
+@pytest.mark.parametrize("B,S", [(4, 16), (8, 1)])
+def test_grouped_gemm_path_matches_reference(monkeypatch, B, S):
+    """The int8 experts' grouped-GEMM path (`moe._experts` through
+    `kernels.moe_gemm`, whose plain version runs on the CPU), forced on
+    for CPU tensors: within the bf16 tolerance of the reference, equal bit
+    for bit to the `_w` + einsum path, and in `moe.gemm` spans (three a
+    layer), with no `moe.dequant`."""
+    from repro_torch import tracing
+    jcfg, jp = _params("bfloat16")
+    jq = jquantize_tree(jp, "int8")
+    x = np.random.default_rng(5).normal(size=(B, S, D))
+    tcfg = MoEConfig(**dataclasses.asdict(jcfg))
+    xt = to_torch(np.asarray(jnp.asarray(x, jnp.bfloat16)))
+    today, _ = tmoe.apply_moe(_to_torch(jq), xt, tcfg, "swiglu")
+    monkeypatch.setattr(tmoe, "gemm_takes",
+                        lambda dtype, device, sharded: dtype == torch.int8)
+    tracing.drain()
+    tracing.enable()
+    try:
+        out, aux, ref, aux_r = _run(jcfg, jq, x, "bfloat16")
+    finally:
+        tracing.disable()
+    names = [sp.name for sp in tracing.drain()]
+    assert names.count("moe.gemm") == 3 and "moe.dequant" not in names
+    _close(out, aux, ref, aux_r, "bfloat16")
+    assert torch.equal(out, today)
+
+
 def test_group_size_must_divide_tokens():
     jcfg, jp = _params("float32")
     x = torch.zeros(3, 7, D)               # 21 tokens, groups of 16
